@@ -1,11 +1,14 @@
 """jpgenc_tpu_torch — the PyTorch/CUDA port of jpgenc_tpu for NVIDIA Hopper.
 
 The JAX package `jpgenc_tpu` stays the reference; this package imports
-`torch` and never `jax`. Its first slice is the batched baseline encode
-(RGB 4:2:0/4:2:2/4:4:4, standard tables, no restart interval):
+`torch`, never `jax` and nothing of `jpgenc_tpu` (it keeps its own copy of
+the numpy host tier: tables, layout, huffman, config, container, native,
+ref, utils.fixtures). The slices that are in: the batched baseline encode of
+RGB 4:2:0/4:2:2/4:4:4 and of gray, with the standard tables or with two-pass
+optimized Huffman (optimize=True), no restart interval:
 
     jpgenc_tpu_torch.parallel.mesh.encode_batch(imgs, quality=75, device="cuda")
-    jpgenc_tpu_torch.api.encode(img, quality=75, device="cuda")
+    jpgenc_tpu_torch.api.encode(img, quality=75, optimize=True, device="cuda")
 
 Both return the same JFIF bytes as `jpgenc_tpu.api.encode`. The device is
 explicit: "cuda" runs the hand-written kernels under `csrc/` and raises if
@@ -21,4 +24,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,21 +1,26 @@
-"""Public API: encode (counterpart of jpgenc_tpu/api.py, the float,
-standard-table branch of api.py:18-101)."""
+"""Public API: encode (counterpart of jpgenc_tpu/api.py, the float branches
+of api.py:18-101: standard tables and two-pass optimized Huffman)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from jpgenc_tpu_torch import config
+from jpgenc_tpu_torch.container import jfif
 from jpgenc_tpu_torch.engine import (as_device_batch, get_plan,
                                      qtables_for_quality, reject_unported,
                                      resolve_device, tiers_for)
-from jpgenc_tpu_torch.host import config, jfif, ref_encoder
+from jpgenc_tpu_torch.ref import encoder as ref_encoder
 
 EOI = b"\xff\xd9"
 
 
-def jfif_headers(layout, quality: int) -> bytes:
-    """SOI..SOS headers for the standard tables at `quality`."""
-    dc_tables, ac_tables = ref_encoder.standard_tables()
+def jfif_headers(layout, quality: int, dc_tables=None, ac_tables=None
+                 ) -> bytes:
+    """SOI..SOS headers at `quality`, with the standard tables unless an
+    image's own (optimized) tables are given."""
+    if dc_tables is None:
+        dc_tables, ac_tables = ref_encoder.standard_tables()
     return jfif.build_headers(layout, list(qtables_for_quality(quality)),
                               dc_tables, ac_tables)
 
@@ -23,15 +28,19 @@ def jfif_headers(layout, quality: int) -> bytes:
 def encode(img, quality: int = 75, subsampling: str = "420",
            restart_interval: int = 0, optimize: bool = False,
            dct_method: str = "float", device="cuda") -> bytes:
-    """Baseline JFIF encode of one [H, W, 3] RGB uint8 image on `device`.
+    """Baseline JFIF encode of one [H, W, 3] RGB or [H, W] gray uint8 image
+    on `device`.
 
     img is a numpy array (uploaded per call) or a uint8 tensor already on
     `device`. The bytes equal `jpgenc_tpu.api.encode`'s. device="cuda" runs
     the CUDA kernels and raises if CUDA is absent; device="cpu" runs their
     plain PyTorch versions. The capacity ladder is tight -> safe -> worst
     (api.py:51-55); the worst tier (w_blk=56) cannot overflow, so an
-    overflow there raises. Gray, restart intervals, optimize and islow
-    raise NotImplementedError (ROADMAP.md Queue 1)."""
+    overflow there raises. optimize=True is the two-pass mode (api.py:57-77):
+    pass 1 keeps the scan-ordered coefficients on the device and counts
+    symbols, the host builds the image's own Huffman tables, and pass 2
+    climbs the ladder from the cached coefficients. Restart intervals and
+    islow raise NotImplementedError (ROADMAP.md Queue 1)."""
     cfg = config.EncodeConfig(quality=quality, subsampling=subsampling,
                               restart_interval=restart_interval,
                               optimize_huffman=optimize, dct_method=dct_method)
@@ -40,16 +49,25 @@ def encode(img, quality: int = 75, subsampling: str = "420",
         img = np.ascontiguousarray(img)
         if img.dtype != np.uint8:
             raise ValueError("image must be uint8")
-    reject_unported(gray=img.ndim == 2, restart_interval=restart_interval,
-                    optimize=optimize, dct_method=dct_method)
+    reject_unported(restart_interval=restart_interval, dct_method=dct_method)
     x = as_device_batch(img[None], dev)
-    plan = get_plan(x.shape[1], x.shape[2], cfg.subsampling, cfg.quality,
-                    str(dev))
-    for cap_u, w_blk in tiers_for(plan.layout, cfg.quality):
-        scan = plan.encode_scans(x, cap_u, w_blk)[0]
+    mode = "gray" if x.dim() == 3 else cfg.subsampling
+    plan = get_plan(x.shape[1], x.shape[2], mode, cfg.quality, str(dev))
+    lay = plan.layout
+    if cfg.optimize_huffman:
+        zz, dcdiff, hist = plan.zz_and_histogram(x)
+        per_img, tabs = plan.optimized_tables(hist)
+        hdr = jfif_headers(lay, cfg.quality, *per_img[0])
+    else:
+        hdr = jfif_headers(lay, cfg.quality)
+    for cap_u, w_blk in tiers_for(lay, cfg.quality):
+        if cfg.optimize_huffman:
+            scan = plan.entropy_scans_zz(zz, dcdiff, tabs, cap_u, w_blk)[0]
+        else:
+            scan = plan.encode_scans(x, cap_u, w_blk)[0]
         if scan is not None:
             break
     else:
         raise RuntimeError("overflow at the worst capacity tier, which "
                            "covers MAX_BLOCK_BITS: the encode is broken")
-    return jfif_headers(plan.layout, cfg.quality) + scan + EOI
+    return hdr + scan + EOI

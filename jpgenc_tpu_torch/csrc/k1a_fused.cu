@@ -7,147 +7,27 @@
 //
 // Work layout. One thread block takes kTile consecutive MCUs (raster order)
 // of one image and has one thread per output coefficient, (nb+2)*64 of them.
-//  1. The tile's pixel bytes, plus those of the MCU before the tile, go to
-//     shared memory in natural order (pixel row, pixel, channel), with row
-//     and column clamped to H-1 / W-1: that clamp is the replicate pad.
-//  2. Thread c computes coefficient c of every MCU as a dot product with
-//     column c of the dense operator (color + subsample + FDCT + zigzag,
-//     k1_dct._dense_operator 'natural'), read through L1/L2. The sums run in
-//     k order with explicit fmaf, then + bias, / q (a true division, never a
-//     reciprocal: k1_dct.py:72-74) and round half away, all with _rn
-//     intrinsics so no contraction choice can differ between call sites.
+//  1-2. The transform is common.cuh's tile_transform, shared with the K1
+//     kernel (k1_dct.cu) so both hold the same coefficients bit for bit.
 //  3. DC DPCM. Blocks run in no order, so the TPU kernel's carry across rows
 //     (k1a_fused.py:93-124) cannot be used. Instead the MCU before the tile
-//     is recomputed in the same accumulator array: its coefficients equal
+//     is recomputed as slot 0 of the same transform: its coefficients equal
 //     the neighbour block's own bit for bit. The predictor resets at MCU 0
-//     of each image (no restart interval in this slice).
-//  4. Entropy: one warp per 8x8 block, each lane owning positions lane and
-//     lane+32. Ballots of the nonzero mask give the runs, 32 - clz(|v|) the
-//     SSSS (equal to the reference's f32-exponent _ssss for |v| < 2^24), a
-//     shuffle scan the bit offsets, and pieces are ORed into a per-warp word
-//     scratch in shared memory. Words at or past w_blk are dropped; the true
-//     bit count is written, so callers detect overflow as bits > 32*w_blk.
+//     of each image (no restart interval yet).
+//  4. Entropy: one warp per 8x8 block (common.cuh's code_block, shared with
+//     kernel A in block_pack.cu).
 //
 // What bounds it on the H100: the dense operator spends 384*768 FMAs per
 // 4:2:0 MCU (most of them on zeros of the luma blocks) on the CUDA cores,
 // and every tile streams the 1.2 MB operator from L2. kTile MCUs share each
 // operator load; no tensor cores, TMA or wgmma yet (later work).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using namespace jpgenc;
+
 constexpr int kTile = 8;           // MCUs per thread block
-constexpr int kWordScratch = 64;   // per-warp words; w_blk <= 56 fits
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Tables {
-  int ac[2 * 256];   // [tab][sym] (code << 5) | len
-  int dc[2][16];     // [tab][ssss]
-  int misc[4];       // zrl tab0, zrl tab1, eob tab0, eob tab1
-};
-
-__device__ __forceinline__ int quantize(float acc, float bias, float q) {
-  const float x = __fdiv_rn(__fadd_rn(acc, bias), q);
-  return static_cast<int>(truncf(__fadd_rn(x, copysignf(0.5f, x))));
-}
-
-__device__ __forceinline__ int bit_length(int a) {   // a >= 0
-  return a ? 32 - __clz(a) : 0;
-}
-
-__device__ __forceinline__ int amplitude(int v, int s) {
-  return (v >= 0 ? v : v + (1 << s) - 1) & ((1 << s) - 1);
-}
-
-// OR a len-bit piece (len <= 32) into the MSB-first word scratch at bit off.
-__device__ __forceinline__ void put_bits(uint32_t* ws, int w_blk, int off,
-                                         uint32_t val, int len) {
-  if (len <= 0) return;
-  const int word = off >> 5;
-  const uint64_t x = static_cast<uint64_t>(val) << (64 - len - (off & 31));
-  const uint32_t hi = static_cast<uint32_t>(x >> 32);
-  const uint32_t lo = static_cast<uint32_t>(x);
-  if (hi && word < w_blk) atomicOr(&ws[word], hi);
-  if (lo && word + 1 < w_blk) atomicOr(&ws[word + 1], lo);
-}
-
-struct Piece {       // one zigzag position's share of the block's bitstream
-  int n_zrl;         // ZRL codes before the main piece (run >> 4)
-  uint32_t val;      // main piece: DC/AC code + amplitude, or EOB
-  int len;
-};
-
-__device__ __forceinline__ Piece analyze(int p, int v, uint64_t nz_mask,
-                                         int dcdiff, int tab,
-                                         const Tables& t) {
-  Piece r{0, 0u, 0};
-  if (p == 0) {
-    const int s = bit_length(abs(dcdiff));
-    const int e = t.dc[tab][s];
-    r.val = (static_cast<uint32_t>(e >> 5) << s) | amplitude(dcdiff, s);
-    r.len = (e & 31) + s;
-  } else if (v != 0) {
-    const uint64_t below = nz_mask & ((1ull << p) - 1ull);
-    const int prev = below ? 63 - __clzll(static_cast<long long>(below)) : 0;
-    const int run = p - prev - 1;
-    const int s = bit_length(abs(v));
-    const int e = t.ac[tab * 256 + (((run & 15) << 4) | s)];
-    r.n_zrl = run >> 4;
-    r.val = (static_cast<uint32_t>(e >> 5) << s) | amplitude(v, s);
-    r.len = (e & 31) + s;
-  } else if (p == 63) {          // zero tail: EOB
-    const int e = t.misc[2 + tab];
-    r.val = static_cast<uint32_t>(e >> 5);
-    r.len = e & 31;
-  }
-  return r;
-}
-
-// One warp codes one 8x8 block: zz -> words[0:w_blk] and *bits.
-__device__ void code_block(const int* zz, int dcdiff, int tab,
-                           const Tables& t, uint32_t* ws, int w_blk,
-                           uint32_t* words, int* bits, int lane) {
-  ws[lane] = 0u;
-  ws[lane + 32] = 0u;
-  const int v_lo = zz[lane], v_hi = zz[lane + 32];
-  const unsigned b_lo = __ballot_sync(kFull, lane > 0 && v_lo != 0);
-  const unsigned b_hi = __ballot_sync(kFull, v_hi != 0);
-  const uint64_t mask = (static_cast<uint64_t>(b_hi) << 32) | b_lo;
-  const Piece a = analyze(lane, v_lo, mask, dcdiff, tab, t);
-  const Piece b = analyze(lane + 32, v_hi, mask, dcdiff, tab, t);
-  const int zrl = t.misc[tab];
-  const int zlen = zrl & 31;
-  const uint32_t zval = static_cast<uint32_t>(zrl >> 5);
-  const int len_a = a.n_zrl * zlen + a.len;
-  const int len_b = b.n_zrl * zlen + b.len;
-
-  // both halves' exclusive prefixes in one scan: each half's total is at
-  // most 32 * 75 bits, so the low 16 bits never carry into the high ones
-  const int packed = (len_b << 16) | len_a;
-  int incl = packed;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += y;
-  }
-  const int excl = incl - packed;
-  const int tot = __shfl_sync(kFull, incl, 31);
-  const int tot_a = tot & 0xffff;
-  const int off_a = excl & 0xffff;
-  const int off_b = tot_a + (excl >> 16);
-  __syncwarp();                                   // scratch zeroed
-
-  for (int z = 0; z < a.n_zrl; ++z) put_bits(ws, w_blk, off_a + z * zlen, zval, zlen);
-  put_bits(ws, w_blk, off_a + a.n_zrl * zlen, a.val, a.len);
-  for (int z = 0; z < b.n_zrl; ++z) put_bits(ws, w_blk, off_b + z * zlen, zval, zlen);
-  put_bits(ws, w_blk, off_b + b.n_zrl * zlen, b.val, b.len);
-  __syncwarp();
-
-  for (int j = lane; j < w_blk; j += 32) words[j] = ws[j];
-  if (lane == 0) *bits = tot_a + (tot >> 16);
-  __syncwarp();                                   // scratch free for reuse
-}
 
 template <int HS, int VS>
 __global__ void __launch_bounds__((HS * VS + 2) * 64)
@@ -160,11 +40,9 @@ k1a_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
   constexpr int NB = HS * VS;
   constexpr int NB2 = NB + 2;
   constexpr int L = NB2 * 64;                    // outputs per MCU = threads
-  constexpr int MH = 8 * VS, ROW = 3 * 8 * HS;   // MCU rows, bytes per row
-  constexpr int K = MH * ROW;                    // input bytes per MCU
+  constexpr int K = 8 * VS * 3 * 8 * HS;         // input bytes per MCU
   constexpr int NWARPS = L / 32;
   constexpr int SLOTS = kTile + 1;               // slot 0: the MCU before
-  static_assert(L <= K, "coefficients reuse the pixel scratch");
 
   __shared__ __align__(16) float xs[SLOTS * K];
   __shared__ uint32_t ws[NWARPS][kWordScratch];
@@ -175,55 +53,14 @@ k1a_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
   const int g0 = blockIdx.x * kTile;
   const uint8_t* im = img + static_cast<size_t>(n) * H * W * 3;
 
-  for (int i = tid; i < 2 * 256; i += L) tabs.ac[i] = ac_rows[i];
-  if (tid < 32) tabs.dc[tid >> 4][tid & 15] = dc_rows[(tid >> 4) * 128 + (tid & 15)];
-  if (tid < 4) tabs.misc[tid] = misc[tid];
-
-  for (int i = tid; i < SLOTS * K; i += L) {
-    const int s = i / K, e = i - s * K;
-    const int g = g0 - 1 + s;
-    float val = 0.f;
-    if (g >= 0 && g < n_mcus) {
-      const int my_i = g / mx, mx_i = g - my_i * mx;
-      const int r = e / ROW, b = e - r * ROW;
-      const int px = b / 3, c = b - px * 3;
-      const int y = min(my_i * MH + r, H - 1);
-      const int x = min(mx_i * 8 * HS + px, W - 1);
-      val = static_cast<float>(im[(static_cast<size_t>(y) * W + x) * 3 + c]);
-    }
-    xs[i] = val;
+  load_tables(tabs, ac_rows, dc_rows, misc, tid, L);
+  const int* zq = tile_transform<HS, VS, SLOTS>(im, H, W, mx, n_mcus, g0 - 1,
+                                                m, bias, q, xs, tid);
+  if (zz_out != nullptr) {
+    for (int s = 1; s < SLOTS && g0 + s - 1 < n_mcus; ++s)
+      zz_out[(static_cast<size_t>(n) * n_mcus + g0 + s - 1) * L + tid] =
+          static_cast<int16_t>(zq[s * L + tid]);
   }
-  __syncthreads();
-
-  float acc[SLOTS];
-#pragma unroll
-  for (int s = 0; s < SLOTS; ++s) acc[s] = 0.f;
-  for (int k = 0; k < K; k += 4) {
-    const float m0 = __ldg(m + (k + 0) * L + tid);
-    const float m1 = __ldg(m + (k + 1) * L + tid);
-    const float m2 = __ldg(m + (k + 2) * L + tid);
-    const float m3 = __ldg(m + (k + 3) * L + tid);
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[s * K + k]);
-      acc[s] = __fmaf_rn(xv.x, m0, acc[s]);
-      acc[s] = __fmaf_rn(xv.y, m1, acc[s]);
-      acc[s] = __fmaf_rn(xv.z, m2, acc[s]);
-      acc[s] = __fmaf_rn(xv.w, m3, acc[s]);
-    }
-  }
-  const float bc = bias[tid], qc = q[tid];
-  __syncthreads();                               // xs becomes zq below
-  int* zq = reinterpret_cast<int*>(xs);          // [SLOTS][L] quantized
-#pragma unroll
-  for (int s = 0; s < SLOTS; ++s) {
-    const int v = quantize(acc[s], bc, qc);
-    zq[s * L + tid] = v;
-    const int g = g0 - 1 + s;
-    if (zz_out != nullptr && s > 0 && g < n_mcus)
-      zz_out[(static_cast<size_t>(n) * n_mcus + g) * L + tid] = static_cast<int16_t>(v);
-  }
-  __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
   for (int job = warp; job < kTile * NB2; job += NWARPS) {
@@ -238,8 +75,10 @@ k1a_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
     else if (blk < NB) pred = z[(blk - 1) * 64];
     else pred = g == 0 ? 0 : zprev[blk * 64];
     const size_t slot = (static_cast<size_t>(n) * n_mcus + g) * NB2 + blk;
-    code_block(z + blk * 64, z[blk * 64] - pred, blk < NB ? 0 : 1, tabs,
-               ws[warp], w_blk, buf + slot * w_blk, bits + slot, lane);
+    const int tab = blk < NB ? 0 : 1;
+    code_block(z[blk * 64 + lane], z[blk * 64 + lane + 32],
+               z[blk * 64] - pred, tab, tab, tabs, ws[warp], w_blk,
+               buf + slot * w_blk, bits + slot, lane);
   }
 }
 

@@ -1,12 +1,22 @@
 """Encode engine: per-layout device plan, capacities, fetch and host finalize
 (counterpart of jpgenc_tpu/engine.py).
 
+The fused path (standard tables):
+
   pixels (u8, device) -> [K1A] per-block packed words -> [kernel B] segment
   stream -> word compaction (bswap) -> ONE copy of (prefix, nbits, ovf) to
-  the host -> C++ stuffing finalize (jpgenc_tpu.native) + JFIF headers
+  the host -> C++ stuffing finalize (jpgenc_tpu_torch.native) + JFIF headers
+
+The split path (two-pass optimized Huffman):
+
+  pass 1: pixels -> [K1] scan-ordered zigzag int16, kept on the device
+          -> symbol histogram -> host: one Huffman table set per image
+  pass 2: zigzag + tables -> [kernel A] per-block packed words -> [kernel B]
+          -> the same compaction, fetch and finalize
 
 `EncodePlan` takes the role of the reference's `DevicePlan`: its buffers are
-the dense operator, the bias, the quant row and the packed Huffman tables.
+the transform operator, the bias, the quant row, the packed standard
+Huffman tables and the layout's symbol plan.
 """
 from __future__ import annotations
 
@@ -17,11 +27,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from jpgenc_tpu_torch.host import layout as L, native, ref_encoder, tables as T
-from jpgenc_tpu_torch.ops import pack
-from jpgenc_tpu_torch.ops.cuda import k1a_fused, seg_merge
+from jpgenc_tpu_torch import layout as L, native, tables as T
+from jpgenc_tpu_torch.huffman import build_codes, optimize_tables
+from jpgenc_tpu_torch.ops import entropy, pack
+from jpgenc_tpu_torch.ops.cuda import block_pack, k1_dct, k1a_fused, seg_merge
 from jpgenc_tpu_torch.ops.cuda.block_pack import packed_tables
-from jpgenc_tpu_torch.ops.cuda.k1_dct import _dense_operator
+from jpgenc_tpu_torch.ops.transform import _KDCT_ZZ
+from jpgenc_tpu_torch.ref import encoder as ref_encoder
 
 
 def resolve_device(device) -> torch.device:
@@ -41,26 +53,51 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def reject_unported(*, gray: bool = False, restart_interval: int = 0,
-                    optimize: bool = False, dct_method: str = "float"):
+def reject_unported(*, restart_interval: int = 0, dct_method: str = "float"):
     """Raise NotImplementedError naming the ROADMAP item for modes outside
-    this slice."""
-    if gray:
-        raise NotImplementedError(
-            "gray encode (gray K1A) is not ported yet: ROADMAP.md Queue 1 "
-            "item 5")
+    the ported slices."""
     if restart_interval:
         raise NotImplementedError(
             "restart_interval != 0 is not ported yet: ROADMAP.md Queue 1 "
             "item 5")
-    if optimize:
-        raise NotImplementedError(
-            "optimize=True (two-pass Huffman) is not ported yet: ROADMAP.md "
-            "Queue 1 item 6")
     if dct_method != "float":
         raise NotImplementedError(
             f"dct_method={dct_method!r} is not ported yet: ROADMAP.md Queue 1 "
             "item 6")
+
+
+class SymbolPlan(NamedTuple):
+    """Static per-layout scan-order arrays (numpy), padded to whole
+    segments."""
+    prev_same: np.ndarray   # [S] int32, DC predecessor slot or -1
+    dc_tab: np.ndarray      # [S] int32 table id per slot
+    ac_tab: np.ndarray      # [S] int32
+    valid: np.ndarray       # [S] bool (False for segment padding slots)
+
+
+def make_symbol_plan(layout) -> SymbolPlan:
+    """Pad the scan-order index arrays to whole segments
+    (engine.py:39-57)."""
+    pad = layout.n_segments * layout.blocks_per_segment - layout.n_scan
+
+    def _pad(a, fill):
+        return np.concatenate([a, np.full(pad, fill, a.dtype)]) if pad else a
+
+    dc_tab = np.array([layout.comps[ci].dc_tab for ci in layout.scan_comp],
+                      np.int32)
+    ac_tab = np.array([layout.comps[ci].ac_tab for ci in layout.scan_comp],
+                      np.int32)
+    return SymbolPlan(prev_same=_pad(layout.prev_same, -1),
+                      dc_tab=_pad(dc_tab, 0), ac_tab=_pad(ac_tab, 0),
+                      valid=_pad(np.ones(layout.n_scan, bool), False))
+
+
+def make_scan_gather(layout) -> np.ndarray:
+    """scan_flat padded to whole segments (engine.py:60-65): raster block
+    index of every scan slot, 0 for padding slots."""
+    flat = np.zeros(layout.n_segments * layout.blocks_per_segment, np.int32)
+    flat[:layout.n_scan] = layout.scan_flat
+    return flat
 
 
 class EntropyLUTs(NamedTuple):
@@ -88,12 +125,25 @@ def qtables_for_quality(quality: int) -> np.ndarray:
                      T.scale_qtable(T.QTABLE_CHROMA, quality)])
 
 
+def tables_from_freq(freq: np.ndarray, n_tabs: int):
+    """Symbol histogram [2 (dc, ac), 2, 256] of one image -> (dc_tables,
+    ac_tables), n_tabs optimized HuffTables each (T.81 K.2; api.py:65-69,
+    mesh.py:317-322). n_tabs is 1 for gray."""
+    dc = [build_codes(*optimize_tables(freq[0, t].astype(np.int64)))
+          for t in range(n_tabs)]
+    ac = [build_codes(*optimize_tables(freq[1, t].astype(np.int64)))
+          for t in range(n_tabs)]
+    return dc, ac
+
+
 def tables_from_reference(qt_host, luts_dc, luts_ac) -> dict:
     """The parameters carried across from the reference: its numpy quant
     tables [2, 64] (natural order) and packed Huffman LUTs ([2, 256] each,
-    as `jpgenc_tpu.engine.luts_from_tables` makes them) -> the port's CPU
-    tensors: qzz [2, 64] f32 in zigzag order, and ac_rows / dc_rows / misc
-    (block_pack.packed_tables)."""
+    as `jpgenc_tpu.engine.luts_from_tables` makes them; a gray image's one
+    table fills both rows; [B, 2, 256] for one optimized set per image) ->
+    the port's CPU tensors: qzz [2, 64] f32 in zigzag order, and ac_rows /
+    dc_rows / misc (block_pack.packed_tables), with the same leading
+    dimension as the LUTs."""
     zz = np.asarray(T.ZIGZAG)
     qzz = np.asarray(qt_host).reshape(2, 64).astype(np.float32)[:, zz]
     ac_rows, dc_rows, misc = packed_tables(
@@ -155,8 +205,8 @@ def finalize_host_w(up: np.ndarray, nbits: np.ndarray, first_rst: int,
                     n_rst: int, walign: int) -> bytes:
     """Word-compact stream -> stuffed scan with RSTn joins (engine.py:625-656):
     sets the T.81 F.1.2.3 1-padding, stuffs FF -> FF00 and inserts RSTn after
-    the first n_rst segments. C++ (jpgenc_tpu.native.finalize_wcompact) with
-    the reference's numpy fallback."""
+    the first n_rst segments. C++ (jpgenc_tpu_torch.native.finalize_wcompact)
+    with the reference's numpy fallback."""
     if native.available():
         out = native.finalize_wcompact(up, nbits, first_rst, n_rst, walign)
         if out is not None:
@@ -182,40 +232,48 @@ def finalize_host_w(up: np.ndarray, nbits: np.ndarray, first_rst: int,
 class EncodePlan(nn.Module):
     """Per-(layout, quant, tables) encode pipeline on one device.
 
-    Buffers: the natural-basis dense operator m, its bias, the quant row q
-    (zigzag order, luma tiled nb times then chroma twice) and the packed
-    Huffman tables. forward(imgs, cap_u, w_blk) returns the compact word
-    stream, per-segment bit counts and the per-image overflow flag."""
+    Buffers: the transform operator m (colour: the natural-basis dense
+    operator with its bias; gray: KDCT_ZZ, bias unused), the quant row q
+    (zigzag order; colour: luma tiled nb times then chroma twice), the
+    packed standard Huffman tables and the symbol plan of the split path.
+    forward(imgs, cap_u, w_blk) is the fused path; zz_and_histogram and
+    entropy_from_zz are the two passes of the split path. Both return the
+    compact word stream, per-segment bit counts and the per-image overflow
+    flag."""
 
     def __init__(self, layout, tables: dict, device="cuda"):
         super().__init__()
-        reject_unported(gray=layout.is_gray,
-                        restart_interval=layout.restart_interval)
+        reject_unported(restart_interval=layout.restart_interval)
         dev = resolve_device(device)
         self.layout = layout
         self.walign = pack.walign_for(layout.blocks_per_segment)
         c0 = layout.comps[0]
         nb = c0.hs * c0.vs
-        m, bias = _dense_operator(c0.hs, c0.vs, "natural")
         qzz = tables["qzz"]
-        q = torch.cat([qzz[0].repeat(nb), qzz[1], qzz[1]])
-        self.register_buffer("m", torch.from_numpy(m).to(dev))
+        if layout.is_gray:
+            m, bias, q = _KDCT_ZZ, np.zeros(64, np.float32), qzz[0]
+        else:
+            m, bias = k1_dct._dense_operator(c0.hs, c0.vs, "natural")
+            q = torch.cat([qzz[0].repeat(nb), qzz[1], qzz[1]])
+        self.register_buffer(
+            "m", torch.from_numpy(np.ascontiguousarray(m)).to(dev))
         self.register_buffer("bias", torch.from_numpy(bias).reshape(-1).to(dev))
         self.register_buffer("q", q.contiguous().to(dev))
         for name in ("ac_rows", "dc_rows", "misc"):
             self.register_buffer(name, tables[name].contiguous().to(dev))
+        sp = make_symbol_plan(layout)
+        self.register_buffer("prev_same", torch.from_numpy(
+            sp.prev_same.astype(np.int64)).to(dev))
+        for name in ("dc_tab", "ac_tab", "valid"):
+            self.register_buffer(name, torch.from_numpy(
+                getattr(sp, name).astype(np.int32)).to(dev))
         #: adaptive length (u32 words) of the speculative one-copy fetch
         self.prefix_guess = 1024
 
-    def forward(self, imgs: torch.Tensor, cap_u: int, w_blk: int):
-        """[B, H, W, 3] u8 on the plan's device -> (wstream [B, cap_u/4]
-        int32, nbits [B, n_seg] int32, ovf [B] bool)."""
-        lay = self.layout
-        b = imgs.shape[0]
-        n_seg = lay.n_segments
-        buf, bits = k1a_fused.fused_pixels_to_pack(
-            imgs, lay, self.m, self.bias, self.q,
-            (self.ac_rows, self.dc_rows, self.misc), w_blk)
+    def merge(self, buf, bits, cap_u: int, w_blk: int):
+        """Per-block words -> kernel B -> compact stream (the shared tail of
+        both paths)."""
+        b, n_seg = buf.shape[0], self.layout.n_segments
         seg_words, seg_bits = seg_merge.fused_seg_merge(
             buf.reshape(-1, w_blk), bits.reshape(-1), b * n_seg, w_blk,
             cap_words=cap_u // 4)
@@ -223,6 +281,45 @@ class EncodePlan(nn.Module):
             seg_words.reshape(b, n_seg, -1), seg_bits.reshape(b, n_seg),
             cap_u // 4, self.walign)
         return wstream, nbits, bits.amax(dim=1) > 32 * w_blk
+
+    def forward(self, imgs: torch.Tensor, cap_u: int, w_blk: int):
+        """[B, H, W, 3] (gray: [B, H, W]) u8 on the plan's device ->
+        (wstream [B, cap_u/4] int32, nbits [B, n_seg] int32, ovf [B] bool),
+        coded with the plan's tables."""
+        buf, bits = k1a_fused.fused_pixels_to_pack(
+            imgs, self.layout, self.m, self.bias, self.q,
+            (self.ac_rows, self.dc_rows, self.misc), w_blk)
+        return self.merge(buf, bits, cap_u, w_blk)
+
+    def zz_and_histogram(self, imgs: torch.Tensor):
+        """Optimize-mode pass 1 (engine.py:502-505): (scan-ordered zigzag
+        blocks [B, n_slots, 64] int16 and their DC differences [B, n_slots]
+        int32, which both stay on the device for pass 2, and the per-image
+        symbol histogram [B, 2, 2, 256] int32)."""
+        zz = k1_dct.fused_pixels_to_scan(imgs, self.layout, self.m, self.bias,
+                                         self.q)
+        dcdiff = block_pack.slot_metadata(self.prev_same, zz)
+        return zz, dcdiff, entropy.symbol_histogram(
+            zz, dcdiff, self.ac_tab, self.dc_tab, self.valid)
+
+    def optimized_tables(self, hist: torch.Tensor):
+        """Between the passes, on the host: the histogram [B, 2, 2, 256] ->
+        ([(dc_tables, ac_tables)] per image, for the headers, and the same
+        as packed tables with a leading image dimension on the plan's
+        device, for pass 2)."""
+        n_tabs = 1 if self.layout.is_gray else 2
+        per_img = [tables_from_freq(f, n_tabs) for f in hist.cpu().numpy()]
+        return per_img, device_tables(*zip(*per_img), self.m.device)
+
+    def entropy_from_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor, tables,
+                        cap_u: int, w_blk: int):
+        """Optimize-mode pass 2 (engine.py:227-261, :470-476): pass 1's zz
+        [B, n_slots, 64] int16 and dcdiff [B, n_slots], and Huffman tables
+        (packed_tables on the plan's device, shared or one set per image)
+        -> as forward."""
+        buf, bits = block_pack.fused_block_pack(
+            zz, dcdiff, self.ac_tab, self.dc_tab, self.valid, tables, w_blk)
+        return self.merge(buf, bits, cap_u, w_blk)
 
     def fetch(self, outs, cap_u: int):
         """One host copy of (stream prefix, nbits, ovf) for every image,
@@ -241,22 +338,32 @@ class EncodePlan(nn.Module):
         self.prefix_guess = max(t, 1024)
         return [(up[i], nb[i], bool(ok[i])) for i in range(len(nb))]
 
+    def finalize(self, outs, cap_u: int) -> list[bytes | None]:
+        """fetch + host finalize: the entropy-coded scan (stuffed, no
+        markers) per image; None for an image that overflowed this tier."""
+        return [finalize_host_w(up, nb, 0, len(nb) - 1, self.walign)
+                if ok else None for up, nb, ok in self.fetch(outs, cap_u)]
+
     def encode_scans(self, imgs: torch.Tensor, cap_u: int, w_blk: int
                      ) -> list[bytes | None]:
-        """Entropy-coded scans (stuffed, no markers) for a batch; None for
-        an image that overflowed this tier."""
-        out = []
-        for up, nb, ok in self.fetch(self(imgs, cap_u, w_blk), cap_u):
-            out.append(finalize_host_w(up, nb, 0, len(nb) - 1, self.walign)
-                       if ok else None)
-        return out
+        """Entropy-coded scans (stuffed, no markers) for a batch on the
+        fused path; None for an image that overflowed this tier."""
+        return self.finalize(self(imgs, cap_u, w_blk), cap_u)
+
+    def entropy_scans_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor,
+                         tables, cap_u: int, w_blk: int
+                         ) -> list[bytes | None]:
+        """The same from pass 1's cached blocks and given tables (pass 2)."""
+        return self.finalize(
+            self.entropy_from_zz(zz, dcdiff, tables, cap_u, w_blk), cap_u)
 
 
 @functools.lru_cache(maxsize=16)
 def get_plan(height: int, width: int, subsampling: str, quality: int,
              device: str) -> EncodePlan:
     """Cached plan for one geometry, quality and device, with the standard
-    Annex K tables and no restart interval."""
+    Annex K tables and no restart interval. subsampling is "gray" for
+    single-component frames."""
     luts = luts_from_tables(*ref_encoder.standard_tables())
     tables = tables_from_reference(qtables_for_quality(quality), luts.dc,
                                    luts.ac)
@@ -265,9 +372,9 @@ def get_plan(height: int, width: int, subsampling: str, quality: int,
 
 
 def as_device_batch(imgs, device: torch.device) -> torch.Tensor:
-    """[B, H, W, 3] numpy uint8 (uploaded) or a uint8 tensor already on
-    `device` (used as is: the device-resident producer interface).
-    device: as resolve_device returns it."""
+    """[B, H, W, 3] RGB or [B, H, W] gray: numpy uint8 (uploaded) or a uint8
+    tensor already on `device` (used as is: the device-resident producer
+    interface). device: as resolve_device returns it."""
     if isinstance(imgs, torch.Tensor):
         if imgs.device != device:
             raise ValueError(f"tensor input lives on {imgs.device}, not on "
@@ -277,6 +384,16 @@ def as_device_batch(imgs, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(imgs)).to(device)
     if t.dtype != torch.uint8:
         raise ValueError("image must be uint8")
-    if t.dim() != 4 or t.shape[-1] != 3:
-        raise ValueError(f"expected [B, H, W, 3] RGB, got {tuple(t.shape)}")
+    if not (t.dim() == 3 or (t.dim() == 4 and t.shape[-1] == 3)):
+        raise ValueError(f"expected [B, H, W, 3] RGB or [B, H, W] gray, got "
+                         f"{tuple(t.shape)}")
     return t.contiguous()
+
+
+def device_tables(dc_tables, ac_tables, device) -> tuple:
+    """Per-image optimized HuffTable lists (one (dc, ac) pair of lists per
+    image) -> packed_tables with a leading image dimension, on `device`."""
+    luts = [luts_from_tables(dc, ac) for dc, ac in zip(dc_tables, ac_tables)]
+    stacked = EntropyLUTs(dc=np.stack([x.dc for x in luts]),
+                          ac=np.stack([x.ac for x in luts]))
+    return tuple(t.to(device) for t in packed_tables(stacked))

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels under `jpgenc_tpu_torch/csrc/`.
 
-At first use every `csrc/*.cu` is compiled by one `nvcc` call into a shared
-library with a plain C interface, which is loaded with ctypes:
+At first use every `csrc/*.cu` is compiled to an object file, one `nvcc`
+process per source and all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas=-v -o _build/libjpgenc_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas=-v -c -o <tmp>/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libjpgenc_kernels_<hash>.so <tmp>/*.o
 
 The library is named by a hash of the sources and the flags, so a library
 built from other sources is never loaded under a changed C interface (the
@@ -28,7 +30,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,17 @@ SIGNATURES = {
                          _P, _P, _P,                  # m, bias, q
                          _P, _P, _P,                  # ac_rows, dc_rows, misc
                          _I, _P, _P, _P, _P],         # w_blk, buf, bits, zz, stream
+    "k1a_gray_launch": [_P, _I, _I, _I,               # img, B, H, W
+                        _P, _P,                       # kdct, q
+                        _P, _P, _P,                   # ac_rows, dc_rows, misc
+                        _I, _P, _P, _P, _P],          # w_blk, buf, bits, zz, stream
+    "k1_dct_launch": [_P, _I, _I, _I, _I, _I,         # img, B, H, W, hs, vs
+                      _P, _P, _P, _P, _P],            # m, bias, q, zz, stream
+    "k1_gray_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "block_pack_launch": [_P, _P, _P, _P, _P,         # zz, dcdiff, actab, dctab, valid
+                          _I, _I,                     # B, n_slots
+                          _P, _P, _P, _I,             # ac_rows, dc_rows, misc, n_tables
+                          _I, _P, _P, _P],            # w_blk, buf, bits, stream
     "seg_merge_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
@@ -49,9 +62,8 @@ build_seconds = None
 build_log = ""
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) +
-                  glob.glob(os.path.join(_CSRC, "*.cuh")))
+def _sources(pattern: str = "*.cu") -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, pattern)))
 
 
 def _nvcc() -> str:
@@ -69,11 +81,38 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _sources("*.cuh"):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD, f"libjpgenc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _build(so: str) -> str:
+    """Compile every source in parallel, link to `so`; returns nvcc's stderr.
+    Objects and the library are written under temporary names and the
+    library renamed last: a concurrent loader never sees a half-written one."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)))
+        logs = [(p.communicate()[1], p.returncode) for _, p in procs]
+        log = "".join(err for err, _ in logs)
+        if any(rc != 0 for _, rc in logs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        out = os.path.join(tmp, "lib.so")
+        r = subprocess.run([nvcc, "-shared", "-o", out,
+                            *(obj for obj, _ in procs)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(out, so)
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -85,17 +124,7 @@ def library() -> ctypes.CDLL:
     so = library_path()
     if not os.path.exists(so):
         os.makedirs(_BUILD, exist_ok=True)
-        # build to a temp name then rename: a concurrent loader never sees
-        # a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = r.stderr
-        if r.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, so)
+        build_log = _build(so)
     lib = ctypes.CDLL(so)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,10 +1,18 @@
-"""The plain entropy half: scan-ordered zigzag blocks -> per-block packed
-words (counterpart of jpgenc_tpu/ops/pallas/block_pack.py).
+"""Kernel A: scan-ordered zigzag blocks -> per-block Huffman-packed words
+(counterpart of jpgenc_tpu/ops/pallas/block_pack.py).
 
-`packed_tables` and the plain PyTorch forms of `_ssss`, `_ac_analysis`,
-`_dc_piece` and `_pack_slots` (block_pack.py:37-229). The K1A kernel's
-entropy half is checked bit for bit against `pack_blocks_plain`, and kernel
-A (`block_pack._kernel`, still to port) will reuse it as its plain version.
+`fused_block_pack` launches the CUDA kernel in `csrc/block_pack.cu` for a
+CUDA tensor and takes the plain version `pack_blocks_plain` only for a CPU
+tensor. `slot_metadata` is the torch prologue (the previous same-component
+DC is a gather, XLA in the reference too). The plain version is the
+PyTorch form of `_ssss`, `_ac_analysis`, `_dc_piece` and `_pack_slots`
+(block_pack.py:37-229); the K1A kernels' entropy halves are checked bit for
+bit against it as well.
+
+Huffman tables come as `packed_tables` makes them, either one set shared by
+every image (ac_rows [4, 128], dc_rows [2, 128], misc [4]) or one set per
+image with a leading batch dimension (optimized tables; the reference vmaps
+the kernel over a batch of LUTs, parallel/mesh.py:293-296).
 
 All arithmetic runs in int64 holding u32 values, so no shift or sum here
 depends on signed overflow; packed words leave as int32 tensors that hold
@@ -15,18 +23,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jpgenc_tpu_torch.kernels import build
+
 _M32 = 0xFFFFFFFF
+
+#: launches of the CUDA kernel, and calls of the plain version
+launches = 0
+plain_calls = 0
+
+#: widest per-block word tier the kernel's word scratch holds
+MAX_W_BLK = 56
 
 
 def packed_tables(luts) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Huffman LUTs (.dc/.ac [2, 256] packed (code << 5) | len) ->
-    (ac_rows [4, 128], dc_rows [2, 128], misc [4]) int32 CPU tensors
-    (block_pack.py:37-51; misc is [zrl_tab0, zrl_tab1, eob_tab0, eob_tab1])."""
+    """Huffman LUTs (.dc/.ac [..., 2, 256] packed (code << 5) | len) ->
+    (ac_rows [..., 4, 128], dc_rows [..., 2, 128], misc [..., 4]) int32 CPU
+    tensors (block_pack.py:37-51; misc is [zrl_tab0, zrl_tab1, eob_tab0,
+    eob_tab1]). A leading dimension is one table set per image."""
     ac = np.asarray(luts.ac, np.int32)
     dc = np.asarray(luts.dc, np.int32)
-    ac_rows = ac.reshape(4, 128)
-    dc_rows = np.pad(dc[:, :16], ((0, 0), (0, 112)))
-    misc = np.array([ac[0, 0xF0], ac[1, 0xF0], ac[0, 0], ac[1, 0]], np.int32)
+    lead = ac.shape[:-2]
+    ac_rows = ac.reshape(*lead, 4, 128)
+    dc_rows = np.pad(dc[..., :16], [(0, 0)] * (len(lead) + 1) + [(0, 112)])
+    misc = np.stack([ac[..., 0, 0xF0], ac[..., 1, 0xF0], ac[..., 0, 0],
+                     ac[..., 1, 0]], axis=-1).astype(np.int32)
     return (torch.from_numpy(ac_rows.copy()), torch.from_numpy(dc_rows),
             torch.from_numpy(misc))
 
@@ -88,28 +108,30 @@ def _dc_piece(dcdiff: torch.Tensor):
 
 
 def _pack_slots(pos, nz, run, s_ac, amp_ac, e_ac, s_dc, amp_dc, e_dc,
-                zrl, eob, w_blk: int):
+                zrl, eob, valid, w_blk: int):
     """Per-slot pieces -> (packed words [t, w_blk] int64 u32 values, total
-    bits [t]) (block_pack.py:152-229). Each lane's <=3 ZRL pieces and main
+    bits [t]) (block_pack.py:152-229). valid [t, 1] bool masks whole slots
+    to zero length (segment padding). Each lane's <=3 ZRL pieces and main
     piece go MSB-first into a 96-bit register, the in-block exclusive prefix
     gives bit offsets, and the funnel-shifted registers are summed into their
     words (bit-disjoint, so sum == OR). Words at or past w_blk are dropped;
     the total stays true, so callers detect overflow as bits > 32 * w_blk."""
     t = pos.shape[0]
     main_val = _shift_into_word(e_ac >> 5, s_ac) | amp_ac
-    main_len = torch.where(nz, (e_ac & 31) + s_ac, 0)
+    main_len = torch.where(nz & valid, (e_ac & 31) + s_ac, 0)
 
     at63 = pos == 63
     eob_here = at63 & ~nz[:, 63:64]
     main_val = torch.where(eob_here, eob >> 5, main_val)
-    main_len = torch.where(eob_here, eob & 31, main_len)
+    main_len = torch.where(eob_here & valid, eob & 31, main_len)
 
     at0 = pos == 0
     dc_val = _shift_into_word(e_dc >> 5, s_dc) | amp_dc
+    dc_len = torch.where(valid, (e_dc & 31) + s_dc, 0)
     main_val = torch.where(at0, dc_val, main_val)
-    main_len = torch.where(at0, (e_dc & 31) + s_dc, main_len)
+    main_len = torch.where(at0, dc_len, main_len)
 
-    n_zrl = torch.where(nz, run >> 4, 0)
+    n_zrl = torch.where(nz & valid, run >> 4, 0)
     reg = [torch.zeros_like(main_val) for _ in range(3)]
     p_off = torch.zeros_like(main_len)
     for p in range(4):
@@ -142,24 +164,109 @@ def _pack_slots(pos, nz, run, s_ac, amp_ac, e_ac, s_dc, amp_dc, e_dc,
 
 
 def pack_blocks_plain(zz: torch.Tensor, dcdiff: torch.Tensor,
-                      tab: torch.Tensor, tables, w_blk: int
+                      tab: torch.Tensor, tables, w_blk: int,
+                      dctab: torch.Tensor | None = None,
+                      valid: torch.Tensor | None = None,
+                      img: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan-ordered zigzag blocks -> per-block packed words: the plain form
-    of kernel A (`fused_block_pack` after `slot_metadata`).
+    of kernel A.
 
-    zz [S, 64], dcdiff [S] and tab [S] (0 luma, 1 chroma; the same id
-    selects the DC and AC table) are integer tensors; tables is
-    packed_tables(luts) on zz's device. Returns (buf [S, w_blk] int32 u32
-    bit patterns, bits [S] int32)."""
+    zz [S, 64], dcdiff [S] and tab [S] (the AC table id, 0 luma, 1 chroma;
+    also the DC table id unless dctab [S] is given) are integer tensors;
+    valid [S] (default all ones) zeroes padding slots; tables is
+    packed_tables(luts) on zz's device, shared or, with img [S] naming each
+    slot's image, one set per image. Returns (buf [S, w_blk] int32 u32 bit
+    patterns, bits [S] int32)."""
     ac_rows, dc_rows, misc = (x.to(torch.int64) for x in tables)
     v = zz.to(torch.int64)
     tab = tab.to(torch.int64).reshape(-1, 1)
+    dct = tab if dctab is None else dctab.to(torch.int64).reshape(-1, 1)
+    base = torch.zeros_like(tab) if img is None else \
+        2 * img.to(torch.int64).reshape(-1, 1)
+    ok = torch.ones_like(tab, dtype=torch.bool) if valid is None else \
+        (valid != 0).reshape(-1, 1)
     pos, nz, run, s_ac, amp_ac, sym = _ac_analysis(v)
-    e_ac = ac_rows.reshape(-1)[tab * 256 + sym]
+    e_ac = ac_rows.reshape(-1)[(base + tab) * 256 + sym]
     s_dc, amp_dc = _dc_piece(dcdiff.to(torch.int64).reshape(-1, 1))
-    e_dc = dc_rows.reshape(-1)[tab * 128 + s_dc]
-    zrl = misc[tab]
-    eob = misc[2 + tab]
+    e_dc = dc_rows.reshape(-1)[(base + dct) * 128 + s_dc]
+    zrl = misc.reshape(-1)[2 * base + tab]
+    eob = misc.reshape(-1)[2 * base + 2 + tab]
     buf, total = _pack_slots(pos, nz, run, s_ac, amp_ac, e_ac, s_dc, amp_dc,
-                             e_dc, zrl, eob, w_blk)
+                             e_dc, zrl, eob, ok, w_blk)
     return to_i32_bits(buf), total.to(torch.int32)
+
+
+def slot_metadata(prev_same: torch.Tensor, zz: torch.Tensor) -> torch.Tensor:
+    """The torch prologue of kernel A (block_pack.py:282-289): zz
+    [B, n_slots, 64] and the layout's prev_same [n_slots] (DC predecessor
+    slot, -1 at a predictor reset) -> DC differences [B, n_slots] int32."""
+    dc = zz[..., 0].to(torch.int32)
+    prev = dc[:, prev_same.clamp(min=0)]
+    return dc - torch.where(prev_same >= 0, prev, 0)
+
+
+def fused_block_pack(zz: torch.Tensor, dcdiff: torch.Tensor,
+                     actab: torch.Tensor, dctab: torch.Tensor,
+                     valid: torch.Tensor, tables, w_blk: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """zz [B, n_slots, 64] int16 (+ per-slot metadata) -> (buf
+    [B, n_slots, w_blk] int32 u32 bit patterns, bits [B, n_slots] int32).
+
+    dcdiff [B, n_slots] int32 is slot_metadata's; actab, dctab, valid
+    [n_slots] int32 are the layout's symbol plan, the same for every image;
+    tables is packed_tables(luts), shared ([4, 128], [2, 128], [4]) or per
+    image ([B, 4, 128], [B, 2, 128], [B, 4]). A block over 32*w_blk bits
+    keeps its first w_blk words and its true bit count. On a CUDA tensor
+    this launches kernel A (or raises); on a CPU tensor it runs the plain
+    version."""
+    global launches, plain_calls
+    b, n_slots = zz.shape[0], zz.shape[1]
+    ac_rows, dc_rows, misc = tables
+    n_tables = 1 if ac_rows.dim() == 2 else ac_rows.shape[0]
+    if zz.shape != (b, n_slots, 64) or dcdiff.shape != (b, n_slots) or \
+            any(x.shape != (n_slots,) for x in (actab, dctab, valid)):
+        raise ValueError(f"zz {tuple(zz.shape)}, dcdiff {tuple(dcdiff.shape)}"
+                         " and the slot plan do not agree")
+    if n_tables not in (1, b):
+        raise ValueError(f"{n_tables} table sets for a batch of {b}")
+    if zz.device.type == "cpu":
+        plain_calls += 1
+        img = None if n_tables == 1 else \
+            torch.arange(b).repeat_interleave(n_slots)
+        buf, bits = pack_blocks_plain(
+            zz.reshape(-1, 64), dcdiff.reshape(-1), actab.repeat(b), tables,
+            w_blk, dctab=dctab.repeat(b), valid=valid.repeat(b), img=img)
+        return buf.reshape(b, n_slots, w_blk), bits.reshape(b, n_slots)
+    if zz.device.type != "cuda":
+        raise ValueError(f"unsupported device {zz.device}")
+    if not 1 <= w_blk <= MAX_W_BLK:
+        raise ValueError(f"w_blk must be in [1, {MAX_W_BLK}], got {w_blk}")
+    lead = () if ac_rows.dim() == 2 else (b,)
+    args = [(zz, torch.int16, (b, n_slots, 64)),
+            (dcdiff, torch.int32, (b, n_slots)),
+            (actab, torch.int32, (n_slots,)), (dctab, torch.int32, (n_slots,)),
+            (valid, torch.int32, (n_slots,)),
+            (ac_rows, torch.int32, lead + (4, 128)),
+            (dc_rows, torch.int32, lead + (2, 128)),
+            (misc, torch.int32, lead + (4,))]
+    for t, dt, shape in args:
+        if (t.device != zz.device or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"operand {tuple(t.shape)} {t.dtype} {t.device}: "
+                             f"expected contiguous {shape} {dt} on "
+                             f"{zz.device}")
+    buf = torch.empty((b, n_slots, w_blk), dtype=torch.int32,
+                      device=zz.device)
+    bits = torch.empty((b, n_slots), dtype=torch.int32, device=zz.device)
+    lib = build.library()
+    with torch.cuda.device(zz.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.block_pack_launch(
+            zz.data_ptr(), dcdiff.data_ptr(), actab.data_ptr(),
+            dctab.data_ptr(), valid.data_ptr(), b, n_slots,
+            ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
+            n_tables, w_blk, buf.data_ptr(), bits.data_ptr(), stream)
+    build.check(rc, "block_pack")
+    launches += 1
+    return buf, bits

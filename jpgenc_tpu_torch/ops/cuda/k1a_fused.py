@@ -1,18 +1,18 @@
 """Kernel 1, K1A: pixels -> per-block Huffman-packed words in one pass
 (counterpart of jpgenc_tpu/ops/pallas/k1a_fused.py).
 
-`fused_pixels_to_pack` launches the CUDA kernel in `csrc/k1a_fused.cu` for
-a CUDA tensor and takes the plain version `pixels_to_pack_plain` only for a
-CPU tensor. The plain version is `entropy_plain(transform_plain(...))`:
+`fused_pixels_to_pack` launches the CUDA kernel in `csrc/k1a_fused.cu`
+(colour, replaces `_k1a_kernel`) or `csrc/k1a_gray.cu` (gray, replaces
+`_k1a_gray_kernel`) for a CUDA tensor and takes the plain version
+`pixels_to_pack_plain` only for a CPU tensor. The plain version is
+`entropy_plain(transform_plain(...))`:
 
-  transform_plain: replicate pad, MCU regroup in natural byte order, one
-    f32 matmul against the dense operator (color + subsample + FDCT +
-    zigzag), + bias, / q, round half away — the math of `_k1a_kernel`'s
-    first half (k1a_fused.py:62-71);
+  transform_plain (ops/cuda/k1_dct.py, K1's plain version): the math of the
+    kernels' first half (k1a_fused.py:62-71, :376-378);
   entropy_plain: DC DPCM (the Y chain in (mcu, blk) order, chroma per MCU,
-    reset at MCU 0 of each image) and the per-block pack of
-    block_pack.pack_blocks_plain — bit-identical to the kernel given the
-    same coefficients.
+    gray block to block in raster order; reset at MCU 0 of each image) and
+    the per-block pack of block_pack.pack_blocks_plain — bit-identical to
+    the kernel given the same coefficients.
 
 Scan order is (mcu, blk) row-major, so [B, n_mcu, nb+2, w_blk] outputs are
 [B, n_slots, w_blk] slot arrays by a free reshape.
@@ -22,12 +22,14 @@ from __future__ import annotations
 import torch
 
 from jpgenc_tpu_torch.kernels import build
-from jpgenc_tpu_torch.ops.color import pad_replicate
 from jpgenc_tpu_torch.ops.cuda.block_pack import pack_blocks_plain
-from jpgenc_tpu_torch.ops.transform import round_half_away
+from jpgenc_tpu_torch.ops.cuda.k1_dct import (check_operands, geometry,
+                                              transform_plain)
 
-#: launches of the CUDA kernel, and calls of the plain version
+#: launches of the colour and of the gray CUDA kernel, and calls of the
+#: plain version
 launches = 0
+launches_gray = 0
 plain_calls = 0
 
 #: widest per-block word tier the kernel's word scratch holds (the worst
@@ -35,57 +37,23 @@ plain_calls = 0
 MAX_W_BLK = 56
 
 
-def _geometry(layout):
-    if layout.is_gray:
-        raise NotImplementedError(
-            "gray K1A (_k1a_gray_kernel) is not ported yet: ROADMAP.md "
-            "Queue 1 item 5")
-    if layout.restart_interval:
-        raise NotImplementedError(
-            "restart intervals are not ported yet: ROADMAP.md Queue 1 item 5")
-    c0 = layout.comps[0]
-    return c0.hs, c0.vs, c0.hs * c0.vs
-
-
-def mcu_bytes(imgs: torch.Tensor, layout) -> torch.Tensor:
-    """[B, H, W, 3] u8 -> [B, n_mcu, 3*mh*mw] u8: each MCU's replicate-padded
-    bytes in memory order (pixel row, pixel, channel) — the 'natural' basis
-    of k1_dct._dense_operator."""
-    hs, vs, _ = _geometry(layout)
-    c0 = layout.comps[0]
-    b = imgs.shape[0]
-    mh, mw = 8 * vs, 8 * hs
-    my, mx = layout.mcus_y, layout.mcus_x
-    padded = pad_replicate(imgs, c0.plane_h, c0.plane_w)
-    return (padded.reshape(b, my, mh, mx, 3 * mw).permute(0, 1, 3, 2, 4)
-            .reshape(b, my * mx, 3 * mh * mw))
-
-
-def transform_plain(imgs, layout, m, bias, q) -> torch.Tensor:
-    """[B, H, W, 3] u8 -> quantized zigzag [B, n_mcu, (nb+2)*64] int32.
-    m: [3*mh*mw, (nb+2)*64] f32 natural-basis operator; bias, q:
-    [(nb+2)*64] f32 (q tiled per block: luma nb times, then chroma twice)."""
-    x = mcu_bytes(imgs, layout).to(torch.float32)
-    out = torch.matmul(x, m) + bias
-    return round_half_away(out / q).to(torch.int32)
-
-
 def entropy_plain(zz: torch.Tensor, layout, tables, w_blk: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantized zigzag [B, n_mcu, (nb+2)*64] -> (buf [B, n_slots, w_blk]
-    int32 u32 bit patterns, bits [B, n_slots] int32). tables:
-    block_pack.packed_tables(luts) on zz's device."""
-    _, _, nb = _geometry(layout)
+    """Quantized zigzag [B, n_mcu, (nb+2)*64] (gray: [B, n_blocks, 64]) ->
+    (buf [B, n_slots, w_blk] int32 u32 bit patterns, bits [B, n_slots]
+    int32). tables: block_pack.packed_tables(luts) on zz's device."""
+    _, _, nb = geometry(layout)
     b, n_mcu = zz.shape[0], zz.shape[1]
-    z = zz.reshape(b, n_mcu, nb + 2, 64)
-    dc = z[..., 0].to(torch.int64)                   # [B, n_mcu, nb+2]
+    per = 1 if layout.is_gray else nb + 2            # blocks per MCU
+    z = zz.reshape(b, n_mcu, per, 64)
+    dc = z[..., 0].to(torch.int64)                   # [B, n_mcu, per]
     prev = torch.zeros_like(dc)                      # MCU 0: predictor reset
     prev[:, :, 1:nb] = dc[:, :, :nb - 1]             # Y chain within the MCU
     prev[:, 1:, 0] = dc[:, :-1, nb - 1]              # ... from the last MCU
     prev[:, 1:, nb:] = dc[:, :-1, nb:]               # Cb, Cr per MCU
-    tab = (torch.arange(nb + 2, device=zz.device) >= nb).to(torch.int64)
+    tab = (torch.arange(per, device=zz.device) >= nb).to(torch.int64)
     buf, bits = pack_blocks_plain(z.reshape(-1, 64), (dc - prev).reshape(-1),
-                                  tab.expand(b, n_mcu, nb + 2).reshape(-1),
+                                  tab.expand(b, n_mcu, per).reshape(-1),
                                   tables, w_blk)
     return buf.reshape(b, -1, w_blk), bits.reshape(b, -1)
 
@@ -100,16 +68,18 @@ def pixels_to_pack_plain(imgs, layout, m, bias, q, tables, w_blk: int):
 
 def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
                          w_blk: int, return_zz: bool = False):
-    """[B, H, W, 3] u8 -> (buf [B, n_slots, w_blk] int32, bits [B, n_slots]
-    int32[, zz [B, n_mcu, (nb+2)*64] int16]).
+    """[B, H, W, 3] u8 (gray: [B, H, W]) -> (buf [B, n_slots, w_blk] int32,
+    bits [B, n_slots] int32[, zz [B, n_mcu, (nb+2)*64] int16]).
 
-    Blocks that need more than 32*w_blk bits keep their first w_blk words
-    and their true bit count; callers test bits.max() > 32*w_blk. On a CUDA
-    tensor this launches the K1A kernel (or raises); on a CPU tensor it runs
-    the plain version. return_zz also returns the quantized coefficients
-    (the kernel's debug output, for the GPU checks)."""
-    global launches
-    hs, vs, nb = _geometry(layout)
+    Operands as k1_dct.transform_plain; tables is one shared set,
+    block_pack.packed_tables(luts) (gray codes with table 0). Blocks that
+    need more than 32*w_blk bits keep their first w_blk words and their true
+    bit count; callers test bits.max() > 32*w_blk. On a CUDA tensor this
+    launches the K1A kernel (or raises); on a CPU tensor it runs the plain
+    version. return_zz also returns the quantized coefficients (the kernel's
+    debug output, for the GPU checks)."""
+    global launches, launches_gray
+    hs, vs, nb = geometry(layout)
     if imgs.device.type == "cpu":
         if return_zz:
             zz = transform_plain(imgs, layout, m, bias, q)
@@ -118,40 +88,42 @@ def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
         return pixels_to_pack_plain(imgs, layout, m, bias, q, tables, w_blk)
     if imgs.device.type != "cuda":
         raise ValueError(f"unsupported device {imgs.device}")
-    b, h, w, c = imgs.shape
-    l_out = (nb + 2) * 64
-    if (imgs.dtype != torch.uint8 or c != 3 or not imgs.is_contiguous()
-            or (h, w) != (layout.height, layout.width)):
-        raise ValueError("imgs must be a contiguous [B, H, W, 3] uint8 "
-                         "tensor matching the layout")
+    check_operands(imgs, layout, m, bias, q)
     if not 1 <= w_blk <= MAX_W_BLK:
         raise ValueError(f"w_blk must be in [1, {MAX_W_BLK}], got {w_blk}")
     ac_rows, dc_rows, misc = tables
-    args = [(m, torch.float32, (3 * 64 * nb, l_out)),
-            (bias, torch.float32, (l_out,)), (q, torch.float32, (l_out,)),
-            (ac_rows, torch.int32, (4, 128)), (dc_rows, torch.int32, (2, 128)),
-            (misc, torch.int32, (4,))]
-    for t, dt, shape in args:
-        if (t.device != imgs.device or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
+    for t, shape in ((ac_rows, (4, 128)), (dc_rows, (2, 128)), (misc, (4,))):
+        if (t.device != imgs.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"operand {tuple(t.shape)} {t.dtype} {t.device}: "
-                             f"expected contiguous {shape} {dt} on "
+                             f"expected contiguous {shape} int32 on "
                              f"{imgs.device}")
-    n_slots = layout.n_mcus * (nb + 2)
+    b, h, w = imgs.shape[:3]
+    n_slots = layout.n_scan
     buf = torch.empty((b, n_slots, w_blk), dtype=torch.int32,
                       device=imgs.device)
     bits = torch.empty((b, n_slots), dtype=torch.int32, device=imgs.device)
-    zz = (torch.empty((b, layout.n_mcus, l_out), dtype=torch.int16,
-                      device=imgs.device) if return_zz else None)
+    zz = (torch.empty((b, layout.n_mcus, n_slots // layout.n_mcus * 64),
+                      dtype=torch.int16, device=imgs.device)
+          if return_zz else None)
+    zz_ptr = zz.data_ptr() if zz is not None else None
     lib = build.library()
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.k1a_fused_launch(
-            imgs.data_ptr(), b, h, w, hs, vs,
-            m.data_ptr(), bias.data_ptr(), q.data_ptr(),
-            ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
-            w_blk, buf.data_ptr(), bits.data_ptr(),
-            zz.data_ptr() if zz is not None else None, stream)
+        if layout.is_gray:
+            rc = lib.k1a_gray_launch(
+                imgs.data_ptr(), b, h, w, m.data_ptr(), q.data_ptr(),
+                ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
+                w_blk, buf.data_ptr(), bits.data_ptr(), zz_ptr, stream)
+        else:
+            rc = lib.k1a_fused_launch(
+                imgs.data_ptr(), b, h, w, hs, vs,
+                m.data_ptr(), bias.data_ptr(), q.data_ptr(),
+                ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
+                w_blk, buf.data_ptr(), bits.data_ptr(), zz_ptr, stream)
     build.check(rc, "k1a_fused")
-    launches += 1
+    if layout.is_gray:
+        launches_gray += 1
+    else:
+        launches += 1
     return (buf, bits, zz) if return_zz else (buf, bits)

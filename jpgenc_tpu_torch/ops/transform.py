@@ -5,7 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jpgenc_tpu_torch.host import ref_encoder, tables as T
+from jpgenc_tpu_torch import tables as T
+from jpgenc_tpu_torch.ref import encoder as ref_encoder
 
 _C = np.asarray(ref_encoder.dct_matrix(np.float32))
 

@@ -1,7 +1,8 @@
-"""The port never imports JAX: importing every module of `jpgenc_tpu_torch`
-and running a CPU encode leaves `jax` out of sys.modules (checked in a fresh
-interpreter, since this test process imports JAX through conftest), and no
-source file of the port or of chip_smoke.py names it in an import."""
+"""The port imports neither JAX nor the JAX package: importing every module
+of `jpgenc_tpu_torch` and running CPU encodes (colour, gray, optimize)
+leaves `jax` and `jpgenc_tpu` out of sys.modules (checked in a fresh
+interpreter, since this test process imports both), and no source file of
+the port or of chip_smoke.py names either in an import."""
 import os
 import pathlib
 import re
@@ -19,10 +20,17 @@ names = [m.name for m in pkgutil.walk_packages(jpgenc_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 from jpgenc_tpu_torch import api
-from jpgenc_tpu_torch.host import fixtures
-data = api.encode(fixtures.synth_frame(32, 48), 75, device="cpu")
-assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+from jpgenc_tpu_torch.parallel import mesh
+from jpgenc_tpu_torch.utils import fixtures
+rgb = fixtures.synth_frame(32, 48)
+for img in (rgb, rgb[..., 1].copy()):
+    for optimize in (False, True):
+        data = api.encode(img, 75, optimize=optimize, device="cpu")
+        assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+        assert mesh.encode_batch(img[None], 75, optimize=optimize,
+                                 device="cpu") == [data]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "jpgenc_tpu"))
 print("MODULES", len(names), "JAX", bad)
 """
 
@@ -35,13 +43,27 @@ def test_port_runs_without_jax():
     assert r.returncode == 0, r.stderr
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("MODULES")]
     n, jax_mods = line[0].split()[1], line[0].split("JAX", 1)[1].strip()
-    assert int(n) >= 12
+    assert int(n) >= 25
     assert jax_mods == "[]"
 
 
-def test_no_source_imports_jax():
+_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|jpgenc_tpu)\b(?!_)", re.M)
+
+
+def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "jpgenc_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
-    offenders = [str(f) for f in files if pat.search(f.read_text())]
-    assert len(files) >= 13 and offenders == []
+    offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
+    assert len(files) >= 26 and offenders == []
+
+
+def test_import_pattern_tells_the_packages_apart():
+    for line in ("import jax", "from jax import numpy", "import jax.numpy",
+                 "from jpgenc_tpu import api", "import jpgenc_tpu.engine",
+                 "    from jpgenc_tpu.ref import encoder"):
+        assert _IMPORT.search(line), line
+    for line in ("from jpgenc_tpu_torch import api", "import jpgenc_tpu_torch",
+                 "import jpgenc_tpu_torch.engine", "import jaxtyping",
+                 "# from jax import x is not allowed"):
+        assert not _IMPORT.search(line), line

@@ -6,7 +6,10 @@ run in interpret mode, on the same numpy inputs.
   are the same dense f32 operator, summed in different orders);
 - entropy_plain on the JAX zz vs slot_metadata + fused_block_pack: bit for
   bit, including overflowing blocks;
-- pixels_to_pack_plain vs fused_pixels_to_pack: bit for bit.
+- pixels_to_pack_plain vs fused_pixels_to_pack: bit for bit, colour and
+  gray (`_fused_gray`, the gray K1A kernel).
+
+Inputs are made from literal seeds in this file.
 """
 import functools
 
@@ -45,8 +48,8 @@ def _jax_luts():
 
 @pytest.mark.parametrize("h,w,sub,quality", [
     (120, 136, "420", 50), (64, 126, "422", 75), (96, 120, "444", 95)])
-def test_transform_plain_vs_k1_interpret(h, w, sub, quality, rgb_image):
-    img = rgb_image if (h, w) == (120, 136) else synth_frame(h, w)
+def test_transform_plain_vs_k1_interpret(h, w, sub, quality):
+    img = synth_frame(h, w, seed=21)
     lay, _, ops, _ = _setup(h, w, sub, quality)
     zz = k1a_fused.transform_plain(torch.from_numpy(img)[None], *ops)
     ref = np.asarray(fused_pixels_to_scan(
@@ -91,8 +94,8 @@ def _entropy_case(key, quality, w_blk):
 
 @pytest.mark.parametrize("sub,w_blk", [("420", 8), ("420", 56), ("422", 12),
                                        ("444", 24)])
-def test_entropy_plain_vs_block_pack_interpret(sub, w_blk, rgb_image):
-    _IMAGES[("rgb", sub)] = rgb_image
+def test_entropy_plain_vs_block_pack_interpret(sub, w_blk):
+    _IMAGES[("rgb", sub)] = synth_frame(120, 136, seed=1234)
     _entropy_case(("rgb", sub), 75, w_blk)
 
 
@@ -112,6 +115,24 @@ def test_pixels_to_pack_plain_vs_k1a_interpret(h, w, sub, w_blk):
     lay, _, ops, tabs = _setup(h, w, sub)
     ref_buf, ref_bits = fused_pixels_to_pack(
         jnp.asarray(img), lay, qtables_for_quality(75)[1], _jax_luts(),
+        w_blk, interpret=True)
+    buf, bits = k1a_fused.pixels_to_pack_plain(torch.from_numpy(img)[None],
+                                               *ops, tabs, w_blk)
+    np.testing.assert_array_equal(bits[0].numpy(), np.asarray(ref_bits))
+    np.testing.assert_array_equal(buf[0].numpy().view(np.uint32),
+                                  np.asarray(ref_buf))
+
+
+@pytest.mark.parametrize("h,w,quality,w_blk", [(40, 50, 75, 8),
+                                                (17, 23, 95, 16)])
+def test_gray_pixels_to_pack_plain_vs_k1a_gray_interpret(h, w, quality, w_blk):
+    """Gray K1A: one 8x8 block per MCU, luma tables, raster DPCM across MCU
+    rows. Words and bits exact wherever the coefficients agree, which the
+    transform's knife-edge policy does not promise but these sizes give."""
+    img = synth_frame(h, w, channels=1, seed=5)[..., 0].copy()
+    lay, _, ops, tabs = _setup(h, w, "gray", quality)
+    ref_buf, ref_bits = fused_pixels_to_pack(
+        jnp.asarray(img), lay, qtables_for_quality(quality)[1], _jax_luts(),
         w_blk, interpret=True)
     buf, bits = k1a_fused.pixels_to_pack_plain(torch.from_numpy(img)[None],
                                                *ops, tabs, w_blk)
