@@ -5,21 +5,30 @@
 
 Builds the CUDA kernels from `jpgenc_tpu_torch/csrc/` with nvcc (sm_90a),
 checks each kernel against its plain PyTorch version on the card, and drives
-three paths through `parallel.mesh.encode_batch`, each with the launch
-counters reset just before it and read just after:
+the encode paths through `parallel.mesh.encode_batch` and the decode paths
+through `api.decode_batch` / `api.decode`, each with the launch counters
+reset just before it and read just after:
 
   * the fused path: 16 distinct 1080p RGB frames, 4:2:0, Q75, standard tables
     (K1A -> kernel B);
   * the split path: the same frames with optimize=True, one Huffman table set
     per image (K1 -> histogram -> host tables -> kernel A -> kernel B);
   * gray: the luma of the same frames, without optimize (gray K1A -> kernel
-    B) and with it (gray K1 -> ... -> kernel A -> kernel B).
+    B) and with it (gray K1 -> ... -> kernel A -> kernel B);
+  * the decoder: the files of the paths above (standard tables, optimized
+    tables, gray) back to pixels on the card (host entropy decode -> packed
+    upload -> densify -> the reconstruction kernel), as one batch, in chunks
+    of 4 and one file alone; a restart-interval file, a file with escaped
+    coefficients, and a 4:1:1 layout (torch ops, no kernel).
 
 Every output file is checked by the repo's own means: the C++ scan decoder,
 with the file's own tables, returns the kernel's coefficients exactly, and
 frame 0's scan equals the numpy reference encoder's entropy coding of those
 coefficients. The fused and the split kernels must hold the same
-coefficients and, with the same tables, the same packed words.
+coefficients and, with the same tables, the same packed words. Decoded
+pixels equal the reconstruction kernel's on the encoder's own coefficients
+exactly, and the kernel is held against its plain version (max |diff| <= 1
+on fewer than 1e-3 of the bytes) and the float64 reference (max |diff| <= 3).
 
 Every phase either passes or exits non-zero; nothing falls back to the CPU,
 to a plain version or to a Python finalize. Each earlier stdout line is one
@@ -38,6 +47,9 @@ import numpy as np
 Q = 75
 H, W = 1080, 1920
 KNIFE_EDGE_FRAC = 1e-4     # k1_dct.py:18-24: |diff| <= 1 on <= 1e-4 of coefs
+PIXEL_FRAC = 1e-3          # test_pallas_recon.py:24-30: recon vs plain version
+# dB, decoded vs source pixels; the first run read 38.46 (colour), 43.36 (gray)
+PSNR_FLOOR = 35.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, same sheet
 
@@ -56,15 +68,18 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
              "NVIDIA GPU")
-    from jpgenc_tpu_torch import engine, native
+    from jpgenc_tpu_torch import api, decoder, engine, native
     from jpgenc_tpu_torch.container import parser
     from jpgenc_tpu_torch.kernels import build
+    from jpgenc_tpu_torch.layout import make_layout
     from jpgenc_tpu_torch.ops import entropy
     from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused,
-                                           seg_merge)
+                                           recon, seg_merge)
     from jpgenc_tpu_torch.parallel import mesh
+    from jpgenc_tpu_torch.ref import decoder as ref_decoder
     from jpgenc_tpu_torch.ref import encoder as ref_encoder
     from jpgenc_tpu_torch.utils import fixtures
+    from jpgenc_tpu_torch.utils.metrics import psnr
 
     dev = torch.device("cuda")
 
@@ -178,9 +193,10 @@ def main() -> None:
     imgs16 = fixtures.synth_batch(H, W, 16)
     x16 = torch.from_numpy(imgs16).to(dev)
     torch.cuda.synchronize()
-    counters = (k1a_fused, seg_merge, k1_dct, block_pack)
+    counters = (k1a_fused, seg_merge, k1_dct, block_pack, recon)
 
     def reset_counters():
+        decoder.unfused_calls = 0
         for mod in counters:
             for name in ("launches", "launches_gray", "plain_calls"):
                 if hasattr(mod, name):
@@ -193,7 +209,9 @@ def main() -> None:
                  "seg_merge": seg_merge.launches,
                  "k1_dct": k1_dct.launches,
                  "k1_gray": k1_dct.launches_gray,
-                 "block_pack": block_pack.launches},
+                 "block_pack": block_pack.launches,
+                 "recon": recon.launches,
+                 "recon_gray": recon.launches_gray},
                 sum(mod.plain_calls for mod in counters))
 
     def drive(x, expect, n_walls, **kw):
@@ -607,6 +625,291 @@ def main() -> None:
         zz16_k1, dcdiff16, *slot_plan), 5)
     torch.cuda.synchronize()
 
+    # --- phase 10: the reconstruction kernels against their plain version ---
+    # on the coefficients K1 / gray K1 made from the 16 frames (scan order IS
+    # the MCU-major layout), and at one small odd geometry per mode
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: recon_plain's matmul would be the side that is "
+             "wrong")
+
+    def scan_input(pl, x):
+        """(layout, x4 [B, my, mx, L] int16, q_rows [B, L] f32) on the card,
+        from K1's coefficients of x and the plan's quant tables."""
+        lay_ = pl.layout
+        zz = k1_dct.fused_pixels_to_scan(x, lay_, pl.m, pl.bias, pl.q)
+        qs = [qt[0]] if lay_.is_gray else [qt[0], qt[1], qt[1]]
+        q_rows = np.repeat(decoder._q_rows(lay_, qs), x.shape[0], axis=0)
+        return (lay_, zz.reshape(x.shape[0], lay_.mcus_y, lay_.mcus_x, -1),
+                torch.from_numpy(q_rows).to(dev))
+
+    def pixel_edge(a, b, what):
+        d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+        mx, frac = int(d.max()), float((d > 0).double().mean())
+        if mx > 1 or frac >= PIXEL_FRAC:
+            fail(f"{what}: max |diff| {mx}, mismatch fraction {frac:.2e}")
+        return mx, frac
+
+    def nearer_to_float64(out, plain, ref):
+        """Where kernel and plain version differ on one frame: how often
+        each is the nearer one to the float64 reference."""
+        o, p = out.cpu().numpy().astype(int), plain.cpu().numpy().astype(int)
+        differ = o != p
+        dk, dp = np.abs(o - ref)[differ], np.abs(p - ref)[differ]
+        return {"bytes_differing": int(differ.sum()),
+                "kernel_nearer": int((dk < dp).sum()),
+                "plain_nearer": int((dp < dk).sum())}
+
+    recon_in, recon_out, recon_err = {}, {}, {}
+    small = fixtures.synth_batch(61, 130, 3)
+    for mode in ("420", "422", "444", "gray"):
+        xin = g16 if mode == "gray" else x16
+        pl = engine.get_plan(H, W, mode, Q, "cuda")
+        lay_, x4_, q_ = scan_input(pl, xin)
+        out = recon.fused_recon_rgb(x4_, q_, lay_)
+        torch.cuda.synchronize()
+        plain_px = recon.recon_plain(x4_, q_, lay_)
+        mx_, frac = pixel_edge(out, plain_px, f"recon {mode} vs plain")
+        # frame 0 against the float64 reference (limit 3, the reference's)
+        t0 = time.perf_counter()
+        blocks0 = raster(x4_[0].cpu().numpy().astype(np.int32), lay_)
+        ref0 = ref_decoder.reconstruct_ref(
+            lay_, blocks0, [qt[0]] if lay_.is_gray else [qt[0], qt[1], qt[1]])
+        ref_s = time.perf_counter() - t0
+        # the function that carries a reference decode across gives this
+        # kernel input back from the raster blocks and the tables by id
+        cx, cq = decoder.coefficients_from_reference(
+            lay_, blocks0, {0: qt[0], 1: qt[1]})
+        if not (torch.equal(cx.to(dev), x4_[:1])
+                and torch.equal(cq.to(dev), q_[:1])):
+            fail(f"coefficients_from_reference {mode} != the kernel's input")
+        d64 = {}
+        for side, px in (("kernel", out), ("plain", plain_px)):
+            d64[side] = int(np.abs(px[0].cpu().numpy().astype(int)
+                                   - ref0.astype(int)).max())
+            if d64[side] > 3:
+                fail(f"recon {mode} {side} vs float64: max |diff| "
+                     f"{d64[side]}")
+        nearer = nearer_to_float64(out[0], plain_px[0], ref0.astype(int))
+        del plain_px
+        # one small odd geometry: mcus_x = 9 for 4:2:0, last MCU row cropped
+        xs_ = torch.from_numpy(small[..., 1].copy() if mode == "gray"
+                               else small).to(dev)
+        spl = engine.get_plan(61, 130, mode, Q, "cuda")
+        slay, sx4, sq = scan_input(spl, xs_)
+        smx, sfrac = pixel_edge(recon.fused_recon_rgb(sx4, sq, slay),
+                                recon.recon_plain(sx4, sq, slay),
+                                f"recon {mode} 61x130 vs plain")
+        recon_in[mode], recon_out[mode] = (lay_, x4_, q_), out
+        recon_err[mode] = mx_
+        emit({"phase": "recon", "mode": mode, "vs_plain_max_abs": mx_,
+              "vs_plain_mismatch_frac": frac, "odd_61x130_max_abs": smx,
+              "odd_61x130_mismatch_frac": sfrac,
+              "vs_float64_max_abs": d64, "where_they_differ": nearer,
+              "reconstruct_ref_s": round(ref_s, 2)})
+    recon_out = {m: recon_out[m] for m in ("420", "gray")}
+    for m in ("422", "444"):
+        del recon_in[m]
+
+    # --- phase 11: the decode paths through the API --------------------------
+    def drive_decode(files, mode, src, what):
+        """decode_batch as one batch, in chunks of 4, and decode of one
+        file, each between a counter reset and a read; pixels must equal
+        the kernel's on the encoder's own coefficients exactly."""
+        name = "recon_gray" if mode == "gray" else "recon"
+        want = recon_out[mode]
+
+        def counted(fn, n_expect, label):
+            reset_counters()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, plain = read_counters()
+            ran = {k: v for k, v in launches.items() if v}
+            if ran != {name: n_expect} or plain or decoder.unfused_calls:
+                fail(f"decode {what} {label}: launches {launches} (expected "
+                     f"{name}: {n_expect}), plain calls {plain}, unfused "
+                     f"{decoder.unfused_calls}")
+            return out, launches, wall
+
+        batch, launches, first_s = counted(
+            lambda: api.decode_batch(files, to_device=True), 1, "batch")
+        if not (batch.is_cuda and batch.dtype == torch.uint8
+                and torch.equal(batch, want)):
+            fail(f"decode_batch {what} != kernel(encoder coefficients)")
+        chunks, launches4, _ = counted(
+            lambda: api.decode_batch(files, to_device=True, chunk=4), 4,
+            "chunk=4")
+        if not (isinstance(chunks, list) and len(chunks) == 4
+                and torch.equal(torch.cat(chunks), want)):
+            fail(f"decode_batch {what} chunk=4 != kernel(encoder "
+                 "coefficients)")
+        one, launches1, one_s = counted(
+            lambda: api.decode(files[0], to_device=True), 1, "decode")
+        if not torch.equal(one, want[0]):
+            fail(f"decode {what} != kernel(encoder coefficients)")
+        host = api.decode_batch(files[:2])
+        if not all(isinstance(a, np.ndarray) and np.array_equal(
+                a, want[i].cpu().numpy()) for i, a in enumerate(host)):
+            fail(f"decode_batch {what} to_device=False differs")
+        lay_ = recon_in[mode][0]
+        zz_np = gzz16_np if mode == "gray" else zz16_np
+        for i, data in enumerate(files):
+            lay2, blocks, _ = decoder.decode_to_coefficients(data)
+            if lay2 is not lay_ or not np.array_equal(blocks,
+                                                  raster(zz_np[i], lay_)):
+                fail(f"decode_to_coefficients {what} file {i} != K1 zz")
+        db = [psnr(batch[i].cpu().numpy(), src[i]) for i in range(len(files))]
+        if min(db) < PSNR_FLOOR:
+            fail(f"decode {what}: PSNR {min(db):.2f} dB under the floor")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.decode_batch(files, to_device=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        emit({"phase": f"decode_batch_{what}", "frames": len(files),
+              "launches": launches, "launches_chunk4": launches4,
+              "launches_decode": launches1, "plain_calls": 0,
+              "pixels_equal_kernel_on_encoder_coefficients": True,
+              "coefficients_exact": True,
+              "psnr_db_min": round(min(db), 3),
+              "psnr_db_mean": round(float(np.mean(db)), 3),
+              "first_call_s": round(first_s, 4),
+              "decode_one_s": round(one_s, 4),
+              **rates(walls, len(files))})
+        return launches
+
+    dec_launches = drive_decode(files, "420", imgs16, "standard")
+    dec_opt_launches = drive_decode(opt_files, "420", imgs16, "optimized")
+    dec_gray_launches = drive_decode(gfiles, "gray", gray16, "gray")
+
+    # --- phase 12: a restart-interval file, a file with escapes, 4:1:1 -------
+    def decode_small(data, what, need_exceptions=False):
+        parsed = parser.parse_jpeg(data)
+        lay_ = decoder.layout_from_parsed(parsed)
+        pk = decoder.scan_packed(parsed, lay_)
+        if pk is None:
+            fail(f"{what}: no packed stream from the native decoder")
+        if need_exceptions and not pk[1].size:
+            fail(f"{what}: the exception list is empty")
+        reset_counters()
+        out = api.decode(data, to_device=True)
+        launches, plain = read_counters()
+        if launches["recon"] != 1 or plain:
+            fail(f"{what}: launches {launches}, plain calls {plain}")
+        # the kernel-vs-plain limit against the same decode on the CPU (the
+        # plain version); against float64 the reference's own limit of 3:
+        # where ideal arithmetic gives a tie (a flat block's DC * q / 8 on
+        # x.5), float32 breaks it either way, in every float32 version
+        mx_, frac = pixel_edge(
+            out, torch.from_numpy(api.decode(data, device="cpu")).to(dev),
+            f"{what} vs the CPU decode")
+        d64 = (out.cpu().numpy().astype(int)
+               - ref_decoder.exact_decode(data).astype(int))
+        if np.abs(d64).max() > 3:
+            fail(f"{what} vs exact_decode: max |diff| {np.abs(d64).max()}")
+        emit({"phase": "decode_" + what, "segments": lay_.n_segments,
+              "exceptions": int(pk[1].size), "vs_cpu_decode_max_abs": mx_,
+              "vs_cpu_decode_mismatch_frac": frac,
+              "vs_exact_decode_max_abs": int(np.abs(d64).max()),
+              "vs_exact_decode_mismatch_frac":
+                  round(float((d64 != 0).mean()), 6)})
+
+    decode_small(ref_encoder.encode(fixtures.synth_frame(120, 136), Q, "420",
+                                    restart_interval=2), "dri")
+    two_level = (np.random.default_rng(1).integers(0, 2, (96, 128, 3))
+                 * 255).astype(np.uint8)
+    decode_small(ref_encoder.encode(two_level, 95, "420"), "escapes",
+                 need_exceptions=True)
+
+    lay411 = make_layout(64, 96, "411")
+    zz411 = ref_encoder.image_to_zigzag(fixtures.synth_frame(64, 96), lay411,
+                                        [qt[0], qt[1], qt[1]])
+    reset_counters()
+    px411 = decoder.reconstruct_pixels(lay411, zz411, {0: qt[0], 1: qt[1]},
+                                       to_device=True)
+    launches, plain = read_counters()
+    if any(launches.values()) or plain or decoder.unfused_calls != 1:
+        fail(f"4:1:1: launches {launches}, plain {plain}, unfused "
+             f"{decoder.unfused_calls}")
+    d411 = int(np.abs(px411.cpu().numpy().astype(int) - ref_decoder
+                      .reconstruct_ref(lay411, zz411, {0: qt[0], 1: qt[1]})
+                      .astype(int)).max())
+    if not px411.is_cuda or d411 > 3:
+        fail(f"4:1:1 vs float64: max |diff| {d411}")
+    emit({"phase": "decode_411", "kernel_launches": 0, "unfused_calls": 1,
+          "vs_float64_max_abs": d411})
+
+    # --- phase 13: the decode path's times ------------------------------------
+    def decode_times(files, mode):
+        """The device half alone (stage_recon's run() by CUDA events), the
+        densify alone, the host half alone, and the walls."""
+        lay_, x4_, q_ = recon_in[mode]
+        mpix = len(files) * H * W / 1e6
+        out = {}
+        for chunk in (None, 4):
+            run, h2d = decoder.stage_recon(files, chunk=chunk)
+            ms = sync_ms(run, 10)
+            out[f"device_ms_chunk_{chunk}"] = round(ms, 4)
+            out[f"device_mpix_per_s_chunk_{chunk}"] = round(mpix / ms * 1e3, 1)
+        out["h2d_bytes"] = h2d
+        job = decoder._recon_jobs(files, None)[1][0]()
+        arrays, _ = decoder._upload(job, dev)
+        out["upload_form"] = job.form
+        out["densify_ms"] = round(sync_ms(lambda: decoder._densify(
+            lay_, job.form, arrays, job.nb), 10), 4)
+        # the host half, in its parts: marker parse alone, parse + entropy
+        # decode (8 threads over the files), the chunk-flat stream (numpy),
+        # then the upload and, for to_device=False, the download; and one
+        # file's entropy decode on one thread
+        parse, entropy_, flatten, up, down, one = [], [], [], [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            parsed = [parser.parse_jpeg(d) for d in files]
+            t1 = time.perf_counter()
+            thunk = decoder._recon_jobs(files, None)[1][0]
+            t2 = time.perf_counter()
+            job = thunk()
+            t3 = time.perf_counter()
+            decoder._upload(job, dev)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            recon_out[mode].cpu()
+            t5 = time.perf_counter()
+            decoder.scan_packed(parsed[0], lay_, n_threads=1)
+            one.append(time.perf_counter() - t5)
+            parse.append(t1 - t0)
+            entropy_.append(t2 - t1)
+            flatten.append(t3 - t2)
+            up.append(t4 - t3)
+            down.append(t5 - t4)
+
+        def ms(ts):
+            return [round(1e3 * t, 3) for t in ts]
+        out.update({"parse_ms": ms(parse), "parse_and_entropy_ms": ms(entropy_),
+                    "flatten_ms": ms(flatten), "upload_ms": ms(up),
+                    "download_ms": ms(down),
+                    "entropy_one_file_one_thread_ms": ms(one)})
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            api.decode_batch(files)
+            walls.append(time.perf_counter() - t0)
+        out["to_host"] = rates(walls, len(files))
+        return out
+
+    emit({"phase": "decode_times", "standard": decode_times(files, "420"),
+          "gray": decode_times(gfiles, "gray")})
+    lay_, x4_, q_ = recon_in["420"]
+    recon_ms = sync_ms(lambda: recon.fused_recon_rgb(x4_, q_, lay_), 20)
+    recon_plain_ms = sync_ms(lambda: recon.recon_plain(x4_, q_, lay_), 3)
+    glay_, gx4_, gq_ = recon_in["gray"]
+    grecon_ms = sync_ms(lambda: recon.fused_recon_rgb(gx4_, gq_, glay_), 20)
+    grecon_plain_ms = sync_ms(lambda: recon.recon_plain(gx4_, gq_, glay_), 3)
+    torch.cuda.synchronize()
+
     if any(m == "jax" or m.startswith(("jax.", "jpgenc_tpu."))
            or m == "jpgenc_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
@@ -615,7 +918,10 @@ def main() -> None:
           "launches_by_path": {"fused": main_launches,
                                "optimize": opt_launches,
                                "gray": gray_launches,
-                               "gray_optimize": gray_opt_launches}})
+                               "gray_optimize": gray_opt_launches,
+                               "decode": dec_launches,
+                               "decode_optimized": dec_opt_launches,
+                               "decode_gray": dec_gray_launches}})
 
     # bounds: each input read once and each output written once over the HBM
     # rate, against the operations the function needs over the CUDA-core
@@ -628,7 +934,12 @@ def main() -> None:
     # is counted as 6 integer operations per coefficient and merging as 4
     # per output word, at the same rate. What this port's dense operator
     # spends instead (2 * k_in * l_out per MCU) is reported beside the bound
-    # as dense_operator_ms and is no part of it.
+    # as dense_operator_ms and is no part of it. The reconstruction is
+    # counted likewise: per block one multiply per coefficient, the 16
+    # eight-point passes and 3 per sample for + 128, round and clamp; per
+    # pixel 12 for the chroma taps, 8 for the colour matrix and 6 for three
+    # rounds and clamps. Its dense figure is what csrc/recon.cu spends: a
+    # 64-term dot product per sample, the tile's halo included.
     n_mcu, l_out = lay.n_mcus, lay.blocks_per_mcu * 64
     k_in = 3 * lay.mcu_h * lay.mcu_w
     slots, gslots = n_img * lay.n_scan, n_img * glay.n_scan
@@ -653,6 +964,17 @@ def main() -> None:
     pack_ops, gpack_ops = 6.0 * 64 * slots, 6.0 * 64 * gslots
     col_dense = 2.0 * k_in * l_out * n_mcu * n_img
     gray_dense = 2.0 * 64 * 64 * gslots
+    rec_blk = 64 + 16 * 40 + 3 * 64
+    rec_ops = float(n_img * n_mcu) * (lay.blocks_per_mcu * rec_blk
+                                      + 26 * px_mcu)
+    grec_ops = float(gslots) * (rec_blk + 3 * 64)
+    tiles = n_img * lay.mcus_y * -(-lay.mcus_x // 8)
+    rec_dense = 2.0 * 64 * (64 * slots + tiles * 2 * (2 * 66 + 16)
+                            - n_img * lay.mcus_y * 2 * 2 * 8 *
+                            (-lay.mcus_x % 8))
+    grec_dense = 2.0 * 64 * 64 * gslots
+    px_tol = ("pixel |diff| <= 1 on < 1e-3 of the bytes against the plain "
+              "version; <= 3 against float64")
     exact = "exact"
     ke = ("zz |diff| <= 1 on <= 1e-4 of coefficients; packed words and bits "
           "exact")
@@ -709,6 +1031,24 @@ def main() -> None:
          "ms": round(gk1_ms, 4), "plain_ms": round(gk1_plain_ms, 4),
          **bound(g16.numel() + 4 * (4096 + 64) + gslots * 128, gray_ops,
                  gray_dense),
+         "library_ms": None},
+        {"name": "recon", "route": "cuda",
+         "source": "jpgenc_tpu_torch/csrc/recon.cu",
+         "replaces": "jpgenc_tpu/ops/pallas/recon.py:279",
+         "launches": dec_launches["recon"],
+         "max_abs_err": recon_err["420"], "tolerance": px_tol,
+         "ms": round(recon_ms, 4), "plain_ms": round(recon_plain_ms, 4),
+         **bound(slots * 128 + n_img * l_out * 4 + 4 * 4096
+                 + recon_out["420"].numel(), rec_ops, rec_dense),
+         "library_ms": None},
+        {"name": "recon_gray", "route": "cuda",
+         "source": "jpgenc_tpu_torch/csrc/recon.cu",
+         "replaces": "jpgenc_tpu/ops/pallas/recon.py:246",
+         "launches": dec_gray_launches["recon_gray"],
+         "max_abs_err": recon_err["gray"], "tolerance": px_tol,
+         "ms": round(grecon_ms, 4), "plain_ms": round(grecon_plain_ms, 4),
+         **bound(gslots * 128 + n_img * 64 * 4 + 4 * 4096
+                 + recon_out["gray"].numel(), grec_ops, grec_dense),
          "library_ms": None},
     ]})
     print(card, flush=True)

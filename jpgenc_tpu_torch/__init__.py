@@ -3,14 +3,20 @@
 The JAX package `jpgenc_tpu` stays the reference; this package imports
 `torch`, never `jax` and nothing of `jpgenc_tpu` (it keeps its own copy of
 the numpy host tier: tables, layout, huffman, config, container, native,
-ref, utils.fixtures). The slices that are in: the batched baseline encode of
-RGB 4:2:0/4:2:2/4:4:4 and of gray, with the standard tables or with two-pass
-optimized Huffman (optimize=True), no restart interval:
+ref, utils). The slices that are in: the batched baseline encode of RGB
+4:2:0/4:2:2/4:4:4 and of gray, with the standard tables or with two-pass
+optimized Huffman (optimize=True), no restart interval; and the decoder,
+from any baseline JFIF file (restart intervals included) to pixels on the
+device:
 
     jpgenc_tpu_torch.parallel.mesh.encode_batch(imgs, quality=75, device="cuda")
     jpgenc_tpu_torch.api.encode(img, quality=75, optimize=True, device="cuda")
+    jpgenc_tpu_torch.api.decode_batch(files, to_device=True, device="cuda")
+    jpgenc_tpu_torch.api.decode(data, device="cuda")
 
-Both return the same JFIF bytes as `jpgenc_tpu.api.encode`. The device is
+The encoders return the same JFIF bytes as `jpgenc_tpu.api.encode`; the
+decoders return `jpgenc_tpu.api.decode`'s pixels up to float rounding on a
+knife edge (|diff| <= 1 on fewer than 1e-3 of the bytes). The device is
 explicit: "cuda" runs the hand-written kernels under `csrc/` and raises if
 CUDA is absent; "cpu" runs each kernel's plain PyTorch version.
 
@@ -24,4 +30,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -1,5 +1,7 @@
-"""Public API: encode (counterpart of jpgenc_tpu/api.py, the float branches
-of api.py:18-101: standard tables and two-pass optimized Huffman)."""
+"""Public API: encode, decode, decode_batch (counterpart of
+jpgenc_tpu/api.py: the float branches of encode, api.py:18-101, with the
+standard tables and with two-pass optimized Huffman, and the decoder's
+entry points, api.py:14)."""
 from __future__ import annotations
 
 import numpy as np
@@ -7,6 +9,7 @@ import torch
 
 from jpgenc_tpu_torch import config
 from jpgenc_tpu_torch.container import jfif
+from jpgenc_tpu_torch.decoder import decode, decode_batch  # noqa: F401  (public API re-exports)
 from jpgenc_tpu_torch.engine import (as_device_batch, get_plan,
                                      qtables_for_quality, reject_unported,
                                      resolve_device, tiers_for)

@@ -54,6 +54,9 @@ SIGNATURES = {
                           _P, _P, _P, _I,             # ac_rows, dc_rows, misc, n_tables
                           _I, _P, _P, _P],            # w_blk, buf, bits, stream
     "seg_merge_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "recon_launch": [_P, _P, _P, _P,                  # x, q, kidct, out
+                     _I, _I, _I, _I, _I, _I, _I, _P], # B, my, mx, h, w, hs, vs
+    "recon_gray_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

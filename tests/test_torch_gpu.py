@@ -12,11 +12,14 @@ import pytest
 import torch
 
 from jpgenc_tpu_torch import api, engine, native
+from jpgenc_tpu_torch import decoder as D
 from jpgenc_tpu_torch.container import parser
 from jpgenc_tpu_torch.layout import make_layout
 from jpgenc_tpu_torch.ops import entropy
-from jpgenc_tpu_torch.ops.cuda import block_pack, k1_dct, k1a_fused, seg_merge
+from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused, recon,
+                                       seg_merge)
 from jpgenc_tpu_torch.parallel import mesh
+from jpgenc_tpu_torch.ref import decoder as ref_decoder
 from jpgenc_tpu_torch.ref import encoder as ref_encoder
 from jpgenc_tpu_torch.utils import fixtures
 
@@ -349,3 +352,164 @@ def test_encode_batch_optimize_on_cuda(cuda, gray):
     assert [m.plain_calls for m in mods] == plain
     assert out == [api.encode(f, 75, optimize=True, device="cuda")
                    for f in batch]
+
+
+# --- the decoder: the reconstruction kernels and the decode paths ----------
+
+RECON_CASES = [("420", 61, 130), ("420", 32, 128), ("420", 17, 9),
+               ("422", 47, 250), ("422", 16, 18), ("444", 100, 64),
+               ("444", 9, 71), ("gray", 61, 130), ("gray", 100, 257),
+               ("gray", 7, 5)]
+
+
+def _pixel_parity(out, ref, max_frac=1e-3):
+    """max |diff| <= 1 on fewer than 1e-3 of the bytes (at least 4 bytes:
+    the smallest cases have few)."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.uint8
+    d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    assert float((d > 0).double().mean()) <= max(max_frac, 4 / d.numel())
+
+
+def _coefficients(sub, h, w, batch, amp, seed):
+    lay = make_layout(h, w, sub)
+    n_total = sum(c.n_blocks for c in lay.comps)
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(-amp, amp, (batch, n_total, 64)).astype(np.int32)
+    qts = [rng.integers(1, 40, (batch, 64)).astype(np.int32)
+           for _ in lay.comps]
+    return lay, blocks, qts, D.coefficients_from_reference(lay, blocks, qts)
+
+
+@pytest.mark.parametrize("sub,h,w", RECON_CASES)
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("amp", [30, 300])
+def test_recon_kernel_vs_plain(cuda, sub, h, w, batch, amp):
+    """Both kernels of csrc/recon.cu against recon_plain on the card, with
+    TF32 off (the package switches it off), and the few bytes that differ
+    against the float64 anchor: neither side may be further than 3."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lay, blocks, qts, (x4, q_rows) = _coefficients(sub, h, w, batch, amp,
+                                                   h * 1000 + w + batch)
+    x4, q_rows = x4.to(cuda), q_rows.to(cuda)
+    before = (recon.launches, recon.launches_gray, recon.plain_calls)
+    out = recon.fused_recon_rgb(x4, q_rows, lay)
+    torch.cuda.synchronize()
+    gray = sub == "gray"
+    assert (recon.launches, recon.launches_gray, recon.plain_calls) == \
+        (before[0] + (not gray), before[1] + gray, before[2])
+    plain = recon.recon_plain(x4, q_rows, lay)
+    _pixel_parity(out, plain)
+    assert torch.equal(out, recon.fused_recon_rgb(x4, q_rows, lay))
+    for i in range(batch):
+        ref = ref_decoder.reconstruct_ref(lay, blocks[i],
+                                          [q[i] for q in qts])
+        for side in (out, plain):
+            d = np.abs(side[i].cpu().numpy().astype(int) - ref.astype(int))
+            assert d.max() <= 3
+
+
+@pytest.mark.parametrize("sub,h,w", RECON_CASES[:1] + RECON_CASES[3:4]
+                         + RECON_CASES[7:8])
+def test_recon_kernel_batch_equals_single_images(cuda, sub, h, w):
+    """Each image of a batch is reconstructed with its own quant row, and a
+    second image's pixels do not depend on the first's."""
+    lay, _, _, (x4, q_rows) = _coefficients(sub, h, w, 3, 60, 99)
+    x4, q_rows = x4.to(cuda), q_rows.to(cuda)
+    out = recon.fused_recon_rgb(x4, q_rows, lay)
+    for i in range(3):
+        one = recon.fused_recon_rgb(x4[i:i + 1].contiguous(),
+                                    q_rows[i:i + 1].contiguous(), lay)
+        assert torch.equal(out[i], one[0])
+
+
+def _decode_file(mode, h, w, seed, quality=75, dri=0, optimize=False):
+    img = _frame(h, w, mode, seed)
+    return ref_encoder.encode(img, quality, "420" if mode == "gray" else mode,
+                              restart_interval=dri, optimize=optimize)
+
+
+@pytest.mark.parametrize("mode,h,w", [("420", 120, 136), ("422", 64, 126),
+                                      ("444", 48, 62), ("gray", 100, 62)])
+@pytest.mark.parametrize("dri", [0, 3])
+def test_decode_round_trip_on_cuda(cuda, mode, h, w, dri):
+    """decode(encode(x)) on the card against the float64 exact_decode and
+    against the same decode on the CPU; the port's own encoder makes the
+    file where it can (no restart interval)."""
+    img = _frame(h, w, mode)
+    if dri:
+        data = _decode_file(mode, h, w, 7, dri=dri)
+    else:
+        data = api.encode(img, 75, "420" if mode == "gray" else mode,
+                          device="cuda")
+    before = recon.plain_calls
+    out = api.decode(data, device="cuda")
+    dev = api.decode(data, to_device=True, device="cuda")
+    assert recon.plain_calls == before
+    assert isinstance(out, np.ndarray) and dev.device.type == "cuda"
+    assert np.array_equal(dev.cpu().numpy(), out)
+    assert out.shape == img.shape
+    d = np.abs(out.astype(int) - ref_decoder.exact_decode(data).astype(int))
+    assert d.max() <= 3
+    _pixel_parity(torch.from_numpy(out),
+                  torch.from_numpy(api.decode(data, device="cpu")))
+
+
+def test_decode_exceptions_and_foreign_sampling_on_cuda(cuda):
+    two_level = (np.random.default_rng(3).integers(0, 2, (48, 64, 3)) * 255) \
+        .astype(np.uint8)
+    data = ref_encoder.encode(two_level, 95, "420")
+    parsed = parser.parse_jpeg(data)
+    pk = D.scan_packed(parsed, D.layout_from_parsed(parsed))
+    assert pk is not None and pk[1].size > 0
+    _pixel_parity(torch.from_numpy(api.decode(data, device="cuda")),
+                  torch.from_numpy(api.decode(data, device="cpu")))
+    lay = make_layout(32, 96, "411")
+    blocks = np.random.default_rng(4).integers(-20, 20, (lay.n_scan, 64))
+    qts = [np.full(64, 3, np.int32)] * 3
+    before = (D.unfused_calls, recon.launches)
+    out = D.reconstruct_pixels(lay, blocks, qts, device="cuda")
+    assert (D.unfused_calls, recon.launches) == (before[0] + 1, before[1])
+    _pixel_parity(torch.from_numpy(out), torch.from_numpy(
+        D.reconstruct_pixels(lay, blocks, qts, device="cpu")))
+
+
+@pytest.mark.parametrize("mode", ["420", "gray"])
+def test_decode_batch_on_cuda(cuda, mode):
+    datas = [_decode_file(mode, 120, 136, s, optimize=bool(s % 2))
+             for s in range(5)]
+    counter = "launches_gray" if mode == "gray" else "launches"
+    before = (getattr(recon, counter), recon.plain_calls)
+    stacked = api.decode_batch(datas, to_device=True, device="cuda")
+    assert getattr(recon, counter) == before[0] + 1
+    chunks = api.decode_batch(datas, to_device=True, chunk=2, device="cuda")
+    assert getattr(recon, counter) == before[0] + 4
+    assert recon.plain_calls == before[1]
+    assert stacked.device.type == "cuda" and stacked.shape[0] == 5
+    assert [c.shape[0] for c in chunks] == [2, 2, 1]
+    assert torch.equal(torch.cat(chunks), stacked)
+    host = api.decode_batch(datas, chunk=3, device="cuda")
+    for i, d in enumerate(datas):
+        assert np.array_equal(host[i], stacked[i].cpu().numpy())
+        assert np.array_equal(host[i], api.decode(d, device="cuda"))
+    run, h2d = D.stage_recon(datas, chunk=2, device="cuda")
+    assert h2d > 0 and torch.equal(torch.cat(run()), stacked)
+
+
+def test_recon_on_a_cuda_tensor_never_takes_the_plain_version(cuda,
+                                                              monkeypatch):
+    """With the kernel library missing, a CUDA tensor raises: nothing gives
+    way to recon_plain."""
+    lay, _, _, (x4, q_rows) = _coefficients("420", 32, 48, 1, 30, 5)
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(recon.build, "library", no_library)
+    before = recon.plain_calls
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        recon.fused_recon_rgb(x4.to(cuda), q_rows.to(cuda), lay)
+    data = _decode_file("420", 32, 48, 1)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        api.decode(data, device="cuda")
+    assert recon.plain_calls == before

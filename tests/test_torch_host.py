@@ -396,3 +396,281 @@ def test_fixtures_and_bitio_equal_reference():
     wa.align()
     wb.align()
     assert wa.getvalue() == wb.getvalue()
+
+
+# --- the decoder's host tier (jpgenc_tpu_torch/decoder.py, ref/decoder.py,
+# utils/metrics.py, utils/lru.py) against its originals -----------------------
+
+def _decoder_modules():
+    import jpgenc_tpu.decoder as jd
+    from jpgenc_tpu_torch import decoder as td
+    return jd, td
+
+
+def _scan_file(mode, dri, quality=80, seed=3, h=40, w=56, two_level=False):
+    """A small file from the reference's numpy encoder, parsed by both
+    packages."""
+    from jpgenc_tpu.container.parser import parse_jpeg as jparse
+    from jpgenc_tpu.ref import encoder as jref
+    from jpgenc_tpu_torch.container.parser import parse_jpeg as tparse
+    rng = np.random.default_rng(seed)
+    if two_level:
+        img = (rng.integers(0, 2, (h, w, 3)) * 255).astype(np.uint8)
+    else:
+        img = np.clip(rng.normal(128, 45, (h, w, 3)), 0, 255).astype(np.uint8)
+    if mode == "gray":
+        img = img[..., 0].copy()
+    data = jref.encode(img, quality, "420" if mode == "gray" else mode,
+                       restart_interval=dri)
+    return data, jparse(data), tparse(data)
+
+
+def test_kidct_zz_equals_reference():
+    from jpgenc_tpu.ops.transform import _KIDCT_ZZ
+    from jpgenc_tpu_torch.ops import transform as tt
+    from jpgenc_tpu_torch.ref import decoder as trd
+    np.testing.assert_array_equal(tt._KIDCT_ZZ, _KIDCT_ZZ)
+    np.testing.assert_array_equal(trd._KIDCT_ZZ, _KIDCT_ZZ)
+    assert tt._KIDCT_ZZ.dtype == trd._KIDCT_ZZ.dtype == np.float32
+
+
+@pytest.mark.parametrize("mode,h,w", [("420", 61, 130), ("422", 47, 58),
+                                      ("444", 20, 24), ("gray", 33, 17),
+                                      ("411", 32, 96), ("440", 29, 32),
+                                      ("410", 48, 64)])
+def test_ref_decoder_equals_reference(mode, h, w):
+    from jpgenc_tpu.ref import decoder as jrd
+    from jpgenc_tpu_torch.layout import make_layout as tmake
+    from jpgenc_tpu_torch.ref import decoder as trd
+    rng = np.random.default_rng(h * w)
+    jl, tl = make_layout(h, w, mode), tmake(h, w, mode)
+    n_total = sum(c.n_blocks for c in tl.comps)
+    blocks = rng.integers(-200, 200, (n_total, 64)).astype(np.int32)
+    qts = [rng.integers(1, 60, 64).astype(np.int32) for _ in tl.comps]
+    np.testing.assert_array_equal(trd.reconstruct_ref(tl, blocks, qts),
+                                  jrd.reconstruct_ref(jl, blocks, qts))
+    by_id = {0: qts[0], 1: qts[-1]}
+    np.testing.assert_array_equal(trd.reconstruct_ref(tl, blocks, by_id),
+                                  jrd.reconstruct_ref(jl, blocks, by_id))
+    a = rng.normal(0, 50, (6, 10))
+    for axis in (0, 1):
+        np.testing.assert_array_equal(trd.upsample_fancy_ref(a, axis),
+                                      jrd.upsample_fancy_ref(a, axis))
+        for f in (1, 2, 4):
+            np.testing.assert_array_equal(trd._upsample_axis_ref(a, f, axis),
+                                          jrd._upsample_axis_ref(a, f, axis))
+
+
+@pytest.mark.parametrize("mode,dri", [("420", 0), ("422", 3), ("444", 0),
+                                      ("gray", 2)])
+def test_exact_decode_equals_reference(mode, dri):
+    from jpgenc_tpu.ref import decoder as jrd
+    from jpgenc_tpu_torch.ref import decoder as trd
+    data, _, _ = _scan_file(mode, dri)
+    np.testing.assert_array_equal(trd.exact_decode(data),
+                                  jrd.exact_decode(data))
+
+
+def test_metrics_equal_reference():
+    from jpgenc_tpu.utils import metrics as jm
+    from jpgenc_tpu_torch.utils import metrics as tm
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 256, (20, 30, 3), np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-9, 9, a.shape), 0, 255) \
+        .astype(np.uint8)
+    assert tm.psnr(a, b) == jm.psnr(a, b)
+    assert tm.psnr(a, a) == jm.psnr(a, a) == float("inf")
+    assert tm.psnr(a, b, peak=1.0) == jm.psnr(a, b, peak=1.0)
+    assert tm.bpp(b"x" * 1234, 20, 30) == jm.bpp(b"x" * 1234, 20, 30)
+
+
+def test_lru_cache_equals_reference():
+    from jpgenc_tpu.utils.lru import LRUCache as J
+    from jpgenc_tpu_torch.utils.lru import LRUCache as P
+    for cls in (J, P):
+        with pytest.raises(ValueError):
+            cls(0)
+    j, p = J(3), P(3)
+    trace = []
+    for step, key in enumerate([1, 2, 3, 1, 4, 2, 5, 1, 1, 6, 3]):
+        for c in (j, p):
+            if step % 3 == 2:
+                c.get(key)
+            c[key] = step
+        trace.append((sorted(k for k in range(8) if k in j),
+                      sorted(k for k in range(8) if k in p),
+                      len(j), len(p), j.get(key), p.get(key),
+                      j.get(99, "miss"), p.get(99, "miss")))
+    for jk, pk, jn, pn, jv, pv, jm_, pm in trace:
+        assert (jk, jn, jv, jm_) == (pk, pn, pv, pm)
+    assert p[6] == j[6]
+    with pytest.raises(KeyError):
+        p[99]
+    p.clear()
+    assert len(p) == 0 and 1 not in p
+
+
+def test_bit_reader_and_symbol_helpers_equal_reference():
+    jd, td = _decoder_modules()
+    raw = np.random.default_rng(9).integers(0, 256, 64).astype(np.uint8)
+    a, b = jd._BitReader(raw), td._BitReader(raw)
+    for n in [1, 0, 3, 16, 7, 11, 2, 9] * 6:
+        assert a.read_bits(n) == b.read_bits(n)
+        assert a.read_bit() == b.read_bit()
+        assert a.pos == b.pos
+    for rd in (jd._BitReader(raw[:1]), td._BitReader(raw[:1])):
+        rd.read_bits(8)
+        with pytest.raises(ValueError, match="exhausted"):
+            rd.read_bit()
+        with pytest.raises(ValueError, match="exhausted"):
+            rd.read_bits(3)
+    for s in range(0, 12):
+        for v in (0, 1, (1 << s) - 1, 1 << max(s - 1, 0)):
+            assert td._extend(v, s) == jd._extend(v, s)
+    dc_t, ac_t = standard_tables()
+    for t in dc_t + ac_t:
+        assert td._decode_lut(t) == jd._decode_lut(t)
+    lut = td._decode_lut(ac_t[0])
+    a, b = jd._BitReader(raw), td._BitReader(raw)
+    for _ in range(20):
+        try:
+            want = jd._read_symbol(a, lut)
+        except ValueError:
+            with pytest.raises(ValueError, match="invalid Huffman code"):
+                td._read_symbol(b, lut)
+            break
+        assert td._read_symbol(b, lut) == want and a.pos == b.pos
+    assert td._tables_by_id({0: "a", 3: "b"}) == \
+        jd._tables_by_id({0: "a", 3: "b"}) == ["a", None, None, "b"]
+
+
+@pytest.mark.parametrize("mode,dri,two_level", [
+    ("420", 0, False), ("422", 3, False), ("444", 0, True), ("gray", 2, False),
+    ("420", 2, True)])
+def test_scan_decoders_equal_reference(mode, dri, two_level, monkeypatch):
+    """decode_scan_to_blocks (native and pure Python), scan_pairs,
+    scan_packed, _pairs_from_packed, layout_from_parsed, _qts_of and
+    decode_to_coefficients on the same file."""
+    jd, td = _decoder_modules()
+    data, jp, tp = _scan_file(mode, dri, quality=95 if two_level else 80,
+                              two_level=two_level, h=24, w=40)
+    jl, tl = jd.layout_from_parsed(jp), td.layout_from_parsed(tp)
+    assert (tl.height, tl.width, tl.subsampling, tl.restart_interval) == \
+        (jl.height, jl.width, jl.subsampling, jl.restart_interval)
+    want = jd.decode_scan_to_blocks(jp, jl)
+    from jpgenc_tpu_torch import native as tnative
+    with monkeypatch.context() as m:
+        m.setattr(tnative, "available", lambda: False)
+        pure_python = td.decode_scan_to_blocks(tp, tl)
+    for got in (td.decode_scan_to_blocks(tp, tl), pure_python,
+                td.decode_scan_to_blocks(tp, tl, n_threads=1),
+                td.decode_to_coefficients(data)[1]):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    for a, b in zip(td.scan_pairs(tp, tl), jd.scan_pairs(jp, jl)):
+        np.testing.assert_array_equal(a, b)
+    pk, jpk = td.scan_packed(tp, tl), jd.scan_packed(jp, jl)
+    for a, b in zip(pk, jpk):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    if two_level:
+        assert pk[1].size > 0
+    for a, b in zip(td._pairs_from_packed(pk, tl),
+                    jd._pairs_from_packed(jpk, jl)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(td._qts_of(tp), jd._qts_of(jp)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(td._inv_scan(tl), jd._inv_scan(jl))
+    np.testing.assert_array_equal(td._scan_space_eidx(pk[1], tl),
+                                  jd._scan_space_eidx(jpk[1], jl))
+    e = np.arange(0, tl.n_scan * 64, 37, dtype=np.int32)
+    np.testing.assert_array_equal(td._scan_space_eidx(e, tl),
+                                  jd._scan_space_eidx(e, jl))
+
+
+def test_scan_decode_errors_equal_reference(monkeypatch):
+    jd, td = _decoder_modules()
+    data, jp, tp = _scan_file("420", 0)
+    tl = td.layout_from_parsed(tp)
+    for mod, parsed in ((jd, jp), (td, tp)):
+        broken = dataclasses.replace(parsed, comps=[
+            dataclasses.replace(c, dc_tab=3) for c in parsed.comps])
+        with pytest.raises(ValueError, match="undefined DC Huffman table 3"):
+            mod.decode_scan_to_blocks(broken, tl)
+        broken = dataclasses.replace(parsed, comps=[
+            dataclasses.replace(c, qtab=2) for c in parsed.comps])
+        with pytest.raises(ValueError, match="undefined quant table 2"):
+            mod._qts_of(broken)
+    from jpgenc_tpu_torch import native as tnative
+    monkeypatch.setattr(tnative, "available", lambda: False)
+    dri = dataclasses.replace(tp, restart_interval=2)
+    with pytest.raises(ValueError, match="restart segments"):
+        td.decode_scan_to_blocks(dri, td.layout_from_parsed(dri))
+
+
+@pytest.mark.parametrize("sub", ["420", "422", "444", "gray", "411"])
+def test_q_rows_equals_reference(sub):
+    jd, td = _decoder_modules()
+    from jpgenc_tpu_torch.layout import make_layout as tmake
+    rng = np.random.default_rng(10)
+    jl, tl = make_layout(32, 48, sub), tmake(32, 48, sub)
+    for shape in ((64,), (3, 64)):
+        qts = [rng.integers(1, 255, shape).astype(np.int32) for _ in tl.comps]
+        got = td._q_rows(tl, qts)
+        want = np.asarray(jd._q_rows(jl, [jnp.asarray(q) for q in qts]))
+        assert got.dtype == np.float32 and got.flags.c_contiguous
+        np.testing.assert_array_equal(got, want)
+
+
+def test_sparse_row_helpers_equal_reference():
+    jd, td = _decoder_modules()
+    rng = np.random.default_rng(11)
+    blocks = (rng.integers(-300, 300, (40, 64))
+              * (rng.random((40, 64)) < 0.1)).astype(np.int32)
+    nz = np.flatnonzero(blocks)
+    for size in (blocks.size, 70000):            # idx_hi matters past 65535
+        idx = nz.astype(np.int64) * size // blocks.size
+        np.testing.assert_array_equal(
+            td._rows_from_pairs(idx, blocks.reshape(-1)[nz], size, 4096),
+            jd._rows_from_pairs(idx, blocks.reshape(-1)[nz], size, 4096))
+    np.testing.assert_array_equal(td._sparsify(blocks, 4096),
+                                  jd._sparsify(blocks, 4096))
+    np.testing.assert_array_equal(td._sparsify(blocks, 4096),
+                                  jd._sparsify(blocks))
+    main = rng.integers(0, 256, (50, 2)).astype(np.uint8)
+    eidx = rng.integers(0, 2560, 5).astype(np.int32)
+    evals = rng.integers(-900, 900, 5).astype(np.int16)
+    for a, b in zip(td._pad_packed(main, eidx, evals, 64, 8, 2560),
+                    jd._pad_packed(main, eidx, evals, 64, 8, 2560)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for n, n64 in ((1000, 2560), (5000, 2560), (1, 64)):
+        assert td._packed_wins(n, 3, n64) == jd._packed_wins(n, 3, n64)
+        assert td._sparse_wins(n, n64) == jd._sparse_wins(n, n64)
+
+
+@pytest.mark.parametrize("mode,dri,two_level", [("420", 0, False),
+                                                ("422", 2, True),
+                                                ("gray", 0, False)])
+def test_flatten_packed_equals_reference(mode, dri, two_level):
+    jd, td = _decoder_modules()
+    packed = []
+    for seed in (1, 2, 3, 4):
+        _, _, tp = _scan_file(mode, dri, quality=95 if two_level else 60,
+                              seed=seed, two_level=two_level, h=24, w=40)
+        tl = td.layout_from_parsed(tp)
+        packed.append(td.scan_packed(tp, tl))
+    # an empty frame and a frame that starts late force the bridging hops
+    packed.insert(2, (np.zeros((0, 2), np.uint8), np.zeros(0, np.int32),
+                      np.zeros(0, np.int16)))
+    late = packed[0][0].copy()
+    late[0, 0] = 255
+    packed.append((late, packed[0][1], packed[0][2]))
+    n64 = tl.n_scan * 64
+    for a, b in zip(td._flatten_packed(packed, n64, n64),
+                    jd._flatten_packed(packed, n64, n64)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(td._flatten_packed([], n64, n64),
+                    jd._flatten_packed([], n64, n64)):
+        np.testing.assert_array_equal(a, b)
