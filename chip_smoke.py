@@ -19,7 +19,16 @@ reset just before it and read just after:
     tables, gray) back to pixels on the card (host entropy decode -> packed
     upload -> densify -> the reconstruction kernel), as one batch, in chunks
     of 4 and one file alone; a restart-interval file, a file with escaped
-    coefficients, and a 4:1:1 layout (torch ops, no kernel).
+    coefficients, and a 4:1:1 layout (torch ops, no kernel);
+  * restart intervals: the 16 frames with DRI 120, fused and optimize, gray
+    with DRI 240, and small odd sizes with DRI 1, 3, 7 in every mode;
+  * a wide frame: 2 frames of 2048 x 16384 with optimize=True, whose pass 1
+    is the K1 kernel over the MCU repack (past the reference's row gate);
+  * the separable K1 kernel: the 16 frames with optimize=True under
+    k1_dct.K1_DENSE = False;
+  * islow: the libjpeg-exact integer path (torch ops -> kernel A -> kernel
+    B), one 1080p frame and small odd sizes in every mode, against the numpy
+    reference (ref.islow + ref.encoder) byte for byte.
 
 Every output file is checked by the repo's own means: the C++ scan decoder,
 with the file's own tables, returns the kernel's coefficients exactly, and
@@ -64,6 +73,7 @@ def emit(obj) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an "
@@ -72,12 +82,13 @@ def main() -> None:
     from jpgenc_tpu_torch.container import parser
     from jpgenc_tpu_torch.kernels import build
     from jpgenc_tpu_torch.layout import make_layout
-    from jpgenc_tpu_torch.ops import entropy
+    from jpgenc_tpu_torch.ops import entropy, pack
     from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused,
                                            recon, seg_merge)
     from jpgenc_tpu_torch.parallel import mesh
     from jpgenc_tpu_torch.ref import decoder as ref_decoder
     from jpgenc_tpu_torch.ref import encoder as ref_encoder
+    from jpgenc_tpu_torch.ref import islow as ref_islow
     from jpgenc_tpu_torch.utils import fixtures
     from jpgenc_tpu_torch.utils.metrics import psnr
 
@@ -198,7 +209,8 @@ def main() -> None:
     def reset_counters():
         decoder.unfused_calls = 0
         for mod in counters:
-            for name in ("launches", "launches_gray", "plain_calls"):
+            for name in ("launches", "launches_gray", "launches_repack",
+                         "launches_color", "plain_calls"):
                 if hasattr(mod, name):
                     setattr(mod, name, 0)
 
@@ -208,6 +220,8 @@ def main() -> None:
                  "k1a_gray": k1a_fused.launches_gray,
                  "seg_merge": seg_merge.launches,
                  "k1_dct": k1_dct.launches,
+                 "k1_dense_repack": k1_dct.launches_repack,
+                 "k1_color": k1_dct.launches_color,
                  "k1_gray": k1_dct.launches_gray,
                  "block_pack": block_pack.launches,
                  "recon": recon.launches,
@@ -242,7 +256,9 @@ def main() -> None:
         torch.profiler: the kernels' and copies' device time over the wall
         of the window, and the top kernels by device time. The profiler
         slows the host side, so this is a lower bound of the share without
-        it. None where the profiler reports no device time."""
+        it. Time per call is the window's total over n_calls, so a dropped
+        record lowers it. None where the profiler reports no device
+        time."""
         from torch.profiler import ProfilerActivity, profile
 
         def call():
@@ -263,17 +279,21 @@ def main() -> None:
                            getattr(e, "self_cuda_time_total", 0))
         # device-side rows only (kernels, copies): the host-side row of a
         # torch op repeats its kernels' device time
-        rows = sorted(((dev_us(e), e.key) for e in prof.key_averages()
+        rows = sorted(((dev_us(e), e.key, e.count)
+                       for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and dev_us(e) > 0), reverse=True)
-        total = sum(us for us, _ in rows)
+        total = sum(us for us, _, _ in rows)
         if not total:
             return None
         return {"device_ms_per_call": round(total / n_calls / 1e3, 3),
                 "wall_ms_per_call": round(wall_us / n_calls / 1e3, 3),
                 "busy_share": round(total / wall_us, 3),
-                "top": [[k[:60], round(us / n_calls / 1e3, 3)]
-                        for us, k in rows[:6]]}
+                # [name, device ms per call, records in the window]: the
+                # profiler has been seen to drop a launch (4 records of a
+                # kernel that ran once in each of the 5 calls)
+                "top": [[k[:60], round(us / n_calls / 1e3, 3), n]
+                        for us, k, n in rows[:6]]}
 
     def rates(walls, n_frames):
         mpix = n_frames * H * W / 1e6
@@ -419,6 +439,7 @@ def main() -> None:
         if not (torch.equal(abuf, gray_out[w_blk][0]) and
                 torch.equal(abits, gray_out[w_blk][1])):
             fail(f"kernel A(gray K1 zz) != gray K1A buf/bits, w_blk={w_blk}")
+    k1a_out_bits8 = k1a_out[8][1]
     del zz_plain4, gzz_plain4, k1a_out, gray_out
 
     # --- phase 7: the split path (optimize=True) at full width --------------
@@ -910,6 +931,453 @@ def main() -> None:
     grecon_plain_ms = sync_ms(lambda: recon.recon_plain(gx4_, gq_, glay_), 3)
     torch.cuda.synchronize()
 
+    # --- phase 14: restart intervals -----------------------------------------
+    def decode_any(data, layout):
+        """Parse a file and scan-decode it with ITS OWN tables, for any
+        geometry; the header must carry the layout's."""
+        p = parser.parse_jpeg(data)
+        if (p.height, p.width, p.subsampling, p.restart_interval) != (
+                layout.height, layout.width, layout.subsampling,
+                layout.restart_interval):
+            fail(f"file header {p.height}x{p.width} {p.subsampling} DRI "
+                 f"{p.restart_interval}")
+        coef = native.decode_scan(
+            p.scan_data, layout, [c.dc_tab for c in p.comps],
+            [c.ac_tab for c in p.comps],
+            [p.dc_tables.get(i) for i in range(2)],
+            [p.ac_tables.get(i) for i in range(2)])
+        if coef is None:
+            fail("the native scan decoder is unavailable (no g++?)")
+        return p, coef
+
+    def check_rst(p, layout, what):
+        """RSTn count and numbering (mod 8) of a parsed file's scan. A
+        stuffed scan holds FF only before 00 or a marker."""
+        sd = np.frombuffer(p.scan_data, np.uint8)
+        nxt = sd[1:][sd[:-1] == 0xFF]
+        got = nxt[nxt != 0].tolist()
+        want = [0xD0 + (i & 7) for i in range(layout.n_segments - 1)]
+        if got != want:
+            fail(f"{what}: {len(got)} RSTn markers, expected {len(want)} "
+                 "numbered mod 8")
+
+    def check_dri_files(dfiles, layout, zz_np, want_px, what):
+        """Headers, RSTn, coefficients equal K1's, and decode_batch on the
+        card gives the recon kernel's pixels on the encoder's coefficients."""
+        for i, data in enumerate(dfiles):
+            p, coef = decode_any(data, layout)
+            check_rst(p, layout, f"{what} file {i}")
+            if not np.array_equal(coef, raster(zz_np[i], layout)):
+                fail(f"{what} file {i}: decoded coefficients != K1 zz")
+        px = api.decode_batch(dfiles, to_device=True)
+        if not torch.equal(px, want_px):
+            fail(f"{what}: decode_batch != kernel(encoder coefficients)")
+
+    DRI, GDRI = 120, 240
+    dplan = engine.get_plan(H, W, "420", Q, "cuda", DRI)
+    dlay = dplan.layout
+    dops = (dlay, dplan.m, dplan.bias, dplan.q)
+    dbuf, dbits, dzz = k1a_fused.fused_pixels_to_pack(x4, *dops, tabs, 8,
+                                                      return_zz=True)
+    torch.cuda.synchronize()
+    if not torch.equal(dzz, zz16[:4]):
+        fail("K1A zz changed with the restart interval")
+    pbuf, pbits = k1a_fused.pixels_to_pack_plain(x4, *dops, tabs, 8)
+    dri_plain_equal = torch.equal(
+        zz16[:4].to(torch.int32), k1a_fused.transform_plain(x4, *dops))
+    if dri_plain_equal and not (torch.equal(pbuf, dbuf)
+                                and torch.equal(pbits, dbits)):
+        fail("K1A with DRI != pixels_to_pack_plain")
+    ebuf, ebits = k1a_fused.entropy_plain(dzz.to(torch.int32), dlay, tabs, 8)
+    if not (torch.equal(ebuf, dbuf) and torch.equal(ebits, dbits)):
+        fail("K1A with DRI: entropy half != entropy_plain(kernel zz)")
+    if torch.equal(dbits, k1a_out_bits8):
+        fail("the restart interval did not change K1A's bit counts")
+
+    # K1A's time with and without the restart interval, in turns in one
+    # window; and with the restart layout on the other plan's operand
+    # tensors, which tells the layout's effect from the operands' placement
+    def k1a_time(layout, pl):
+        return sync_ms(lambda: k1a_fused.fused_pixels_to_pack(
+            x16, layout, pl.m, pl.bias, pl.q, tabs, 8), 10)
+
+    k1a_turns = {"no_dri": [k1a_time(lay, plan)],
+                 "dri": [k1a_time(dlay, dplan)],
+                 "dri_layout_on_no_dri_operands": [k1a_time(dlay, plan)],
+                 "no_dri_layout_on_dri_operands": [k1a_time(lay, dplan)]}
+    for key, (l_, p_) in (("dri", (dlay, dplan)), ("no_dri", (lay, plan))):
+        k1a_turns[key].append(k1a_time(l_, p_))
+    k1a_turns = {k: [round(t, 4) for t in v] for k, v in k1a_turns.items()}
+
+    dri_files, launches, plain, first_s, walls = drive(
+        x16, ("k1a_fused", "seg_merge"), 3, restart_interval=DRI)
+    dri_launches = dict(launches)
+    check_dri_files(dri_files, dlay, zz16_np, recon_out["420"], "DRI 120")
+    # the plain path, by hand on the card: plain K1A -> plain kernel B ->
+    # compaction -> the same fetch and finalize; files byte for byte
+    dcap = engine.scan_caps(dlay, Q, "tight")[0]
+    n_dseg = dlay.n_segments
+    psw, psb = seg_merge.seg_merge_plain(
+        pbuf.reshape(-1, 8), pbits.reshape(-1), 4 * n_dseg, 8,
+        cap_words=dcap // 4)
+    pws, pnb = pack.wcompact_unstuffed(
+        psw.reshape(4, n_dseg, -1), psb.reshape(4, n_dseg), dcap // 4,
+        dplan.walign)
+    plain_scans = dplan.finalize((pws, pnb, pbits.amax(dim=1) > 256), dcap)
+    if dri_plain_equal:
+        for i, scan in enumerate(plain_scans):
+            if scan is None or dri_files[i] != (
+                    api.jfif_headers(dlay, Q) + scan + api.EOI):
+                fail(f"DRI 120 file {i} != the plain path's file")
+    emit({"phase": "encode_batch_dri", "restart_interval": DRI,
+          "segments": n_dseg, "frames": len(dri_files), "launches": launches,
+          "plain_calls": plain, "first_call_s": round(first_s, 4),
+          **rates(walls, len(dri_files)), "profile": busy(
+              x16, restart_interval=DRI), "bpp": bpp(dri_files),
+          "bpp_no_dri": bpp(files), "decode_exact": True,
+          "rst_markers_exact": True, "decode_batch_pixels_exact": True,
+          "equals_plain_path_files": dri_plain_equal,
+          "k1a_ms_in_turns": k1a_turns})
+
+    dri_opt_files, launches, plain, first_s, walls = drive(
+        x16, ("k1_dct", "block_pack", "seg_merge"), 3, restart_interval=DRI,
+        optimize=True)
+    dri_opt_launches = dict(launches)
+    check_dri_files(dri_opt_files, dlay, zz16_np, recon_out["420"],
+                    "DRI 120 optimize")
+    if any(len(a) >= len(b) for a, b in zip(dri_opt_files, dri_files)):
+        fail("DRI 120 optimize: a file is not smaller than the standard one")
+    emit({"phase": "encode_batch_dri_optimize", "restart_interval": DRI,
+          "frames": len(dri_opt_files), "launches": launches,
+          "plain_calls": plain, "first_call_s": round(first_s, 4),
+          **rates(walls, len(dri_opt_files)), "bpp": bpp(dri_opt_files),
+          "decode_exact": True, "rst_markers_exact": True,
+          "decode_batch_pixels_exact": True})
+
+    gdplan = engine.get_plan(H, W, "gray", Q, "cuda", GDRI)
+    gdlay = gdplan.layout
+    gdops = (gdlay, gdplan.m, gdplan.bias, gdplan.q)
+    gdbuf, gdbits, gdzz = k1a_fused.fused_pixels_to_pack(
+        g4, *gdops, gtabs, 8, return_zz=True)
+    ebuf, ebits = k1a_fused.entropy_plain(gdzz.to(torch.int32), gdlay, gtabs,
+                                          8)
+    if not (torch.equal(ebuf, gdbuf) and torch.equal(ebits, gdbits)):
+        fail("gray K1A with DRI: entropy half != entropy_plain(kernel zz)")
+    gdri_files, launches, plain, first_s, walls = drive(
+        g16, ("k1a_gray", "seg_merge"), 3, restart_interval=GDRI)
+    gdri_launches = dict(launches)
+    check_dri_files(gdri_files, gdlay, gzz16_np, recon_out["gray"],
+                    "gray DRI 240")
+    emit({"phase": "encode_batch_gray_dri", "restart_interval": GDRI,
+          "segments": gdlay.n_segments, "frames": len(gdri_files),
+          "launches": launches, "plain_calls": plain,
+          "first_call_s": round(first_s, 4),
+          **rates(walls, len(gdri_files)), "bpp": bpp(gdri_files),
+          "decode_exact": True, "rst_markers_exact": True,
+          "decode_batch_pixels_exact": True})
+    del dbuf, dbits, dzz, pbuf, pbits, psw, pws, gdbuf, gdbits, gdzz
+
+    # small sizes: DRI 1, 3 (short last segment, pad slots), 7 in every
+    # mode, odd widths; and the worst tier (w_blk 56) once with DRI
+    def small_case(img, mode, quality, what, **kw):
+        """api.encode on the card: launches only, the file's coefficients
+        equal K1's, the bytes equal the CPU (plain) path's wherever the
+        coefficients agree, and it decodes on the card."""
+        sub = "420" if mode == "gray" else mode
+        dri_ = kw.get("restart_interval", 0)
+        reset_counters()
+        data = api.encode(img, quality, sub, device="cuda", **kw)
+        launches, plain = read_counters()
+        if plain or not launches["seg_merge"]:
+            fail(f"{what}: launches {launches}, plain calls {plain}")
+        pl = engine.get_plan(img.shape[0], img.shape[1], mode, quality,
+                             "cuda", dri_)
+        lay_ = pl.layout
+        p, coef = decode_any(data, lay_)
+        check_rst(p, lay_, what)
+        same = True
+        if kw.get("dct_method", "float") == "float":
+            xs_ = torch.from_numpy(img)[None].to(dev)
+            zz_ = pl.zz_scan(xs_)[0][0, :lay_.n_scan]
+            if not np.array_equal(coef, raster(
+                    zz_.cpu().numpy().astype(np.int32), lay_)):
+                fail(f"{what}: decoded coefficients != K1 zz")
+            cpl = engine.get_plan(img.shape[0], img.shape[1], mode, quality,
+                                  "cpu", dri_)
+            same = torch.equal(
+                cpl.zz_scan(torch.from_numpy(img)[None])[0][0, :lay_.n_scan],
+                zz_.cpu())
+        if same and data != api.encode(img, quality, sub, device="cpu",
+                                       **kw):
+            fail(f"{what}: bytes != the CPU (plain) path's")
+        if api.decode(data, to_device=True).shape[:2] != img.shape[:2]:
+            fail(f"{what}: decode gave another size")
+        return data, launches, same
+
+    n_small, n_same = 0, 0
+    small_rgb = fixtures.synth_frame(61, 130)
+    for mode in ("420", "422", "444", "gray"):
+        img_ = small_rgb[..., 1].copy() if mode == "gray" else small_rgb
+        for dri_ in (1, 3, 7):
+            for opt in (False, True):
+                _, _, same = small_case(
+                    img_, mode, Q, f"61x130 {mode} DRI {dri_} optimize={opt}",
+                    restart_interval=dri_, optimize=opt)
+                n_small, n_same = n_small + 1, n_same + int(same)
+    noise_small = np.random.default_rng(77).integers(0, 256, (32, 48, 3),
+                                                     np.uint8)
+    npl = engine.get_plan(32, 48, "444", 100, "cuda", 1)
+    if npl.encode_scans(torch.from_numpy(noise_small)[None].to(dev),
+                        *engine.tiers_for(npl.layout, 100)[-2]) != [None]:
+        fail("the small noise frame did not overflow the safe tier")
+    small_case(noise_small, "444", 100, "32x48 noise Q100 DRI 1 worst tier",
+               restart_interval=1)
+    emit({"phase": "dri_small", "cases": n_small + 1,
+          "bytes_equal_cpu_path": n_same, "worst_tier_with_dri": True})
+
+    # --- phase 15: a wide frame, past the reference's row gate ---------------
+    WH, WW = 2048, 16384
+    t0 = time.perf_counter()
+    wide = np.stack([np.concatenate(
+        [fixtures.synth_frame(WH, 2048, seed=100 + 8 * f + t)
+         for t in range(8)], axis=1) for f in range(2)])
+    wide_gen_s = time.perf_counter() - t0
+    xw = torch.from_numpy(wide).to(dev)
+    wplan = engine.get_plan(WH, WW, "420", Q, "cuda")
+    wlay = wplan.layout
+    wops = (wlay, wplan.m, wplan.bias, wplan.q)
+    if k1_dct.k1_variant(wlay) != "repack" or k1_dct.k1_variant(lay) != "rows":
+        fail("the row gate does not select the repack variant at 16384 px")
+
+    def drive_wide(expect, **kw):
+        reset_counters()
+        t0 = time.perf_counter()
+        out = mesh.encode_batch(xw, quality=Q, device="cuda", **kw)
+        first = time.perf_counter() - t0
+        launches, plain = read_counters()
+        if {k for k, v in launches.items() if v} != set(expect) or plain:
+            fail(f"wide frame {kw}: launches {launches} (expected {expect}), "
+                 f"plain calls {plain}")
+        ws = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            if mesh.encode_batch(xw, quality=Q, device="cuda", **kw) != out:
+                fail(f"wide frame {kw}: not deterministic")
+            ws.append(time.perf_counter() - t0)
+        mpix = len(out) * WH * WW / 1e6
+        return out, launches, {
+            "first_call_s": round(first, 4),
+            "wall_s": [round(t, 4) for t in ws],
+            "mpix_per_s_best": round(mpix / min(ws), 1),
+            "bpp": round(float(np.mean([8 * len(f) / (WH * WW)
+                                        for f in out])), 4)}
+
+    wide_opt, launches, wide_opt_stats = drive_wide(
+        ("k1_dense_repack", "block_pack", "seg_merge"), optimize=True)
+    wide_launches = dict(launches)
+    wide_fused, launches, wide_fused_stats = drive_wide(
+        ("k1a_fused", "seg_merge"))
+    zz_rep = k1_dct.fused_pixels_to_scan(xw, *wops)
+    zz_rows = k1_dct.fused_pixels_to_scan(xw, *wops, variant="rows")
+    torch.cuda.synchronize()
+    if not torch.equal(zz_rep, zz_rows):
+        fail("wide frame: repack kernel zz != row kernel zz")
+    rep_err, rep_frac = knife_edge(
+        zz_rep, k1_dct.pixels_to_scan_plain(xw, *wops),
+        "wide frame: repack kernel zz vs plain")
+    zzw_np = zz_rep.cpu().numpy().astype(np.int32)
+    for i in range(len(wide)):
+        for what, fs in (("optimize", wide_opt), ("fused", wide_fused)):
+            if not np.array_equal(decode_any(fs[i], wlay)[1],
+                                  raster(zzw_np[i], wlay)):
+                fail(f"wide frame {what} file {i}: decoded coefficients != "
+                     "the repack kernel's zz")
+    rep16 = k1_dct.fused_pixels_to_scan(x16, *ops, variant="repack")
+    if not torch.equal(rep16, zz16_k1):
+        fail("repack kernel zz != row kernel zz at 16 x 1080p")
+    del rep16, zz_rows
+    rep_wide_ms = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        xw, *wops, variant="repack"), 5)
+    rows_wide_ms = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        xw, *wops, variant="rows"), 5)
+    rep_wide_ms2 = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        xw, *wops, variant="repack"), 5)
+    rep_plain_ms = sync_ms(lambda: k1_dct.pixels_to_scan_plain(xw, *wops), 2)
+    prologue_wide_ms = sync_ms(
+        lambda: k1_dct.mcu_bytes(xw, wlay).contiguous(), 5)
+    rep16_ms = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        x16, *ops, variant="repack"), 10)
+    rows16_ms = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        x16, *ops, variant="rows"), 10)
+    prologue16_ms = sync_ms(lambda: k1_dct.mcu_bytes(x16, lay).contiguous(),
+                            10)
+    k1a_wide_ms = sync_ms(lambda: k1a_fused.fused_pixels_to_pack(
+        xw, *wops, tabs, 8), 3)
+    emit({"phase": "wide_frame", "shape": [len(wide), WH, WW, 3],
+          "generate_s": round(wide_gen_s, 2), "launches": wide_launches,
+          "plain_calls": 0, "optimize": wide_opt_stats,
+          "fused": wide_fused_stats, "repack_equals_rows": True,
+          "zz_vs_plain_max_abs": rep_err, "zz_vs_plain_mismatch_frac": rep_frac,
+          "files_decode_to_kernel_zz": True,
+          "k1_ms": {"wide_repack": [round(rep_wide_ms, 4),
+                                    round(rep_wide_ms2, 4)],
+                    "wide_rows": round(rows_wide_ms, 4),
+                    "wide_repack_prologue": round(prologue_wide_ms, 4),
+                    "wide_plain": round(rep_plain_ms, 4),
+                    "wide_k1a": round(k1a_wide_ms, 4),
+                    "x16_1080p_repack": round(rep16_ms, 4),
+                    "x16_1080p_rows": round(rows16_ms, 4),
+                    "x16_1080p_repack_prologue": round(prologue16_ms, 4)}})
+    wide_px, wide_slots = xw.numel(), len(wide) * wlay.n_scan
+    wide_mcus = len(wide) * wlay.n_mcus
+    del xw, zz_rep, zzw_np, wide, wide_opt, wide_fused
+
+    # --- phase 16: the separable K1 kernel (K1_DENSE = False) ----------------
+    k1_dct.K1_DENSE = False
+    try:
+        if k1_dct.k1_variant(lay) != "separable":
+            fail("K1_DENSE = False does not select the separable variant")
+        sep_files, launches, plain, first_s, walls = drive(
+            x16, ("k1_color", "block_pack", "seg_merge"), 3, optimize=True)
+        sep_launches = dict(launches)
+        sep_profile = busy(x16, optimize=True)
+    finally:
+        k1_dct.K1_DENSE = True
+    zz_sep = k1_dct.fused_pixels_to_scan(x16, *ops, variant="separable",
+                                         sep=plan.sep)
+    torch.cuda.synchronize()
+    sep_plain = k1_dct.color_plain(x16, lay, plan.sep, plan.q)
+    d_sep = zz_sep != sep_plain
+    sep_err = int((zz_sep.to(torch.int32) - sep_plain.to(torch.int32))
+                  .abs().max())
+    sep_n = int(d_sep.sum())
+    if sep_err > 1 or sep_n > 1e-3 * d_sep.numel():
+        fail(f"separable kernel vs color_plain: max |diff| {sep_err} on "
+             f"{sep_n} coefficients")
+    if sep_n:
+        # they may differ only where the float64 value lies within 1e-4 of a
+        # rounding boundary
+        nb_ = lay.blocks_per_mcu - 2
+        pl64 = k1_dct.mcu_planar(x16, lay).double()
+        r_, g_, b_ = pl64[:, :, 0], pl64[:, :, 1], pl64[:, :, 2]
+        y_ = 0.299 * r_ + 0.587 * g_ + 0.114 * b_ - 128.0
+        cb_ = -0.168735892 * r_ + -0.331264108 * g_ + 0.5 * b_
+        cr_ = 0.5 * r_ + -0.418687589 * g_ + -0.081312411 * b_
+        kd_, sc_ = plan.sep[:64].double(), plan.sep[64:].double()
+        exact = torch.cat(
+            [(y_.reshape(*y_.shape[:2], nb_, 64) @ kd_).flatten(2),
+             cb_ @ sc_, cr_ @ sc_], dim=-1) / plan.q.double()
+        dist = ((exact - exact.floor()) - 0.5).abs().reshape(zz_sep.shape)
+        if not bool((dist[d_sep] < 1e-4).all()):
+            fail("separable kernel differs from color_plain away from a "
+                 "float64 rounding boundary")
+        del pl64, r_, g_, b_, y_, cb_, cr_, exact, dist
+    d_k1 = (zz_sep.to(torch.int32) - zz16_k1.to(torch.int32)).abs()
+    sep_vs_k1_max = int(d_k1.max())
+    sep_vs_k1_frac = float((d_k1 > 0).double().mean())
+    if sep_vs_k1_max > 1 or sep_vs_k1_frac > max(KNIFE_EDGE_FRAC,
+                                                 2.0 / d_k1.numel()):
+        fail(f"separable kernel vs K1: max |diff| {sep_vs_k1_max}, fraction "
+             f"{sep_vs_k1_frac:.2e}")
+    zz_sep_np = zz_sep.cpu().numpy().astype(np.int32)
+    for i, data in enumerate(sep_files):
+        if not np.array_equal(decode(data)[1], raster(zz_sep_np[i])):
+            fail(f"separable file {i}: decoded coefficients != kernel zz")
+    sep_ms = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        x16, *ops, variant="separable", sep=plan.sep), 10)
+    k1_again_ms = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        x16, *ops, variant="rows"), 10)
+    sep_ms2 = sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+        x16, *ops, variant="separable", sep=plan.sep), 10)
+    sep_plain_ms = sync_ms(lambda: k1_dct.color_plain(x16, lay, plan.sep,
+                                                      plan.q), 3)
+    emit({"phase": "encode_batch_separable", "frames": len(sep_files),
+          "launches": sep_launches, "plain_calls": plain,
+          "first_call_s": round(first_s, 4), **rates(walls, len(sep_files)),
+          "profile": sep_profile, "bpp": bpp(sep_files),
+          "vs_color_plain_max_abs": sep_err,
+          "vs_color_plain_differing": sep_n,
+          "differences_only_at_float64_knife_edges": True,
+          "vs_k1_max_abs": sep_vs_k1_max,
+          "vs_k1_mismatch_frac": sep_vs_k1_frac,
+          "files_decode_to_kernel_zz": True,
+          "ms": [round(sep_ms, 4), round(sep_ms2, 4)],
+          "k1_rows_ms_same_window": round(k1_again_ms, 4)})
+    del zz_sep, sep_plain, d_sep, d_k1, zz_sep_np
+
+    # --- phase 17: islow, the libjpeg-exact integer path ---------------------
+    def islow_reference(img, layout, quality, optimize):
+        """The numpy encode: ref.islow's coefficients, ref.encoder's coder."""
+        qts = list(engine.qtables_for_quality(quality))
+        blocks = ref_islow.image_to_zigzag_islow(img, layout, qts)
+        if optimize:
+            dc_, ac_ = engine.tables_from_freq(
+                ref_encoder.symbol_histogram(layout, blocks),
+                1 if layout.is_gray else 2)
+        else:
+            dc_, ac_ = ref_encoder.standard_tables()
+        return (api.jfif_headers(layout, quality, dc_, ac_)
+                + ref_encoder.entropy_scan(layout, blocks, dc_, ac_)
+                + api.EOI)
+
+    def islow_case(img, mode, what, n_frames=1, **kw):
+        sub = "420" if mode == "gray" else mode
+        x_ = torch.from_numpy(np.stack([img] * n_frames)).to(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        out = mesh.encode_batch(x_, quality=Q, subsampling=sub,
+                                dct_method="islow", device="cuda", **kw)
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+        ran = {k for k, v in launches.items() if v}
+        if ran != {"block_pack", "seg_merge"} or plain:
+            fail(f"islow {what}: launches {launches}, plain calls {plain}")
+        lay_ = make_layout(img.shape[0], img.shape[1], mode,
+                           kw.get("restart_interval", 0))
+        t0 = time.perf_counter()
+        ref = islow_reference(img, lay_, Q, kw.get("optimize", False))
+        ref_s_ = time.perf_counter() - t0
+        if any(f != ref for f in out):
+            fail(f"islow {what}: file != ref.islow + ref.encoder")
+        if api.encode(img, Q, sub, dct_method="islow", device="cuda",
+                      **kw) != ref:
+            fail(f"islow {what}: api.encode != encode_batch")
+        return launches, wall, ref_s_, len(ref)
+
+    islow_rows = []
+    for what, kw in (("1080p standard", {}),
+                     ("1080p optimize DRI 120",
+                      {"optimize": True, "restart_interval": DRI})):
+        launches, wall, ref_s_, nbytes = islow_case(imgs16[0], "420", what,
+                                                    **kw)
+        islow_launches = dict(launches)
+        x1 = x16[:1]
+        walls_ = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mesh.encode_batch(x1, quality=Q, dct_method="islow",
+                              device="cuda", **kw)
+            walls_.append(time.perf_counter() - t0)
+        islow_rows.append({"case": what, "launches": launches,
+                           "first_call_s": round(wall, 4),
+                           "wall_s": [round(t, 4) for t in walls_],
+                           "mpix_per_s_best": round(
+                               H * W / 1e6 / min(walls_), 1),
+                           "bpp": round(8 * nbytes / (H * W), 4),
+                           "numpy_reference_s": round(ref_s_, 2)})
+    islow_zz_ms = sync_ms(lambda: plan.zz_islow(x16[:1]), 5)
+    n_islow = 0
+    for mode in ("420", "422", "444", "gray"):
+        img_ = small_rgb[..., 1].copy() if mode == "gray" else small_rgb
+        for kw in ({}, {"optimize": True}, {"restart_interval": 3},
+                   {"optimize": True, "restart_interval": 7}):
+            islow_case(img_, mode, f"61x130 {mode} {kw}", n_frames=2, **kw)
+            n_islow += 1
+    emit({"phase": "islow", "full_width": islow_rows,
+          "zz_islow_ms_one_1080p_frame": round(islow_zz_ms, 4),
+          "small_cases": n_islow, "bytes_equal_numpy_reference": True,
+          "plain_calls": 0})
+
     if any(m == "jax" or m.startswith(("jax.", "jpgenc_tpu."))
            or m == "jpgenc_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
@@ -921,7 +1389,13 @@ def main() -> None:
                                "gray_optimize": gray_opt_launches,
                                "decode": dec_launches,
                                "decode_optimized": dec_opt_launches,
-                               "decode_gray": dec_gray_launches}})
+                               "decode_gray": dec_gray_launches,
+                               "dri": dri_launches,
+                               "dri_optimize": dri_opt_launches,
+                               "gray_dri": gdri_launches,
+                               "wide_optimize": wide_launches,
+                               "separable_optimize": sep_launches,
+                               "islow": islow_launches}})
 
     # bounds: each input read once and each output written once over the HBM
     # rate, against the operations the function needs over the CUDA-core
@@ -939,7 +1413,11 @@ def main() -> None:
     # eight-point passes and 3 per sample for + 128, round and clamp; per
     # pixel 12 for the chroma taps, 8 for the colour matrix and 6 for three
     # rounds and clamps. Its dense figure is what csrc/recon.cu spends: a
-    # 64-term dot product per sample, the tile's halo included.
+    # 64-term dot product per sample, the tile's halo included. The repack
+    # kernel is bounded at the wide frames' shape, its main path's (the image
+    # read once: the repack is the function's own intermediate); the
+    # separable kernel's own figure is its 64-term luma and nb*64-term chroma
+    # dot products, (nb*64 + 2*nb*64) * 64 FMAs per MCU.
     n_mcu, l_out = lay.n_mcus, lay.blocks_per_mcu * 64
     k_in = 3 * lay.mcu_h * lay.mcu_w
     slots, gslots = n_img * lay.n_scan, n_img * glay.n_scan
@@ -973,12 +1451,18 @@ def main() -> None:
                             - n_img * lay.mcus_y * 2 * 2 * 8 *
                             (-lay.mcus_x % 8))
     grec_dense = 2.0 * 64 * 64 * gslots
+    mcu_ops = 15 * px_mcu + sub_ops + lay.blocks_per_mcu * dct_ops
+    nb_y = lay.blocks_per_mcu - 2
+    sep_b = 4 * ((1 + nb_y) * 64 * 64 + l_out)
+    sep_own = 2.0 * 3 * nb_y * 64 * 64 * n_mcu * n_img
     px_tol = ("pixel |diff| <= 1 on < 1e-3 of the bytes against the plain "
               "version; <= 3 against float64")
     exact = "exact"
     ke = ("zz |diff| <= 1 on <= 1e-4 of coefficients; packed words and bits "
           "exact")
     ke_zz = "zz |diff| <= 1 on <= 1e-4 of coefficients"
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start,
+                                             1)})
     emit({"kernels": [
         {"name": "k1a_fused", "route": "cuda",
          "source": "jpgenc_tpu_torch/csrc/k1a_fused.cu",
@@ -1031,6 +1515,34 @@ def main() -> None:
          "ms": round(gk1_ms, 4), "plain_ms": round(gk1_plain_ms, 4),
          **bound(g16.numel() + 4 * (4096 + 64) + gslots * 128, gray_ops,
                  gray_dense),
+         "library_ms": None},
+        {"name": "k1_dense_repack", "route": "cuda",
+         "source": "jpgenc_tpu_torch/csrc/k1_dct.cu",
+         "replaces": "jpgenc_tpu/ops/pallas/k1_dct.py:175",
+         "launches": wide_launches["k1_dense_repack"],
+         "max_abs_err": rep_err,
+         "tolerance": ke_zz + "; equal to the row kernel's zz exactly",
+         "shape": "2 x 2048 x 16384 (the wrapper: torch repack + kernel)",
+         "ms": round(rep_wide_ms, 4), "plain_ms": round(rep_plain_ms, 4),
+         "repack_prologue_ms": round(prologue_wide_ms, 4),
+         "row_kernel_ms": round(rows_wide_ms, 4),
+         "ms_16x1080p": round(rep16_ms, 4),
+         "row_kernel_ms_16x1080p": round(rows16_ms, 4),
+         **bound(wide_px + op_b + wide_slots * 128,
+                 float(wide_mcus) * mcu_ops,
+                 2.0 * k_in * l_out * wide_mcus),
+         "library_ms": None},
+        {"name": "k1_color", "route": "cuda",
+         "source": "jpgenc_tpu_torch/csrc/k1_dct.cu",
+         "replaces": "jpgenc_tpu/ops/pallas/k1_dct.py:203",
+         "launches": sep_launches["k1_color"], "max_abs_err": sep_err,
+         "tolerance": "differs from color_plain only within 1e-4 of a "
+                      "float64 rounding boundary; from K1 by |diff| <= 1 on "
+                      "<= 1e-4 of coefficients",
+         "ms": round(sep_ms, 4), "plain_ms": round(sep_plain_ms, 4),
+         "row_kernel_ms": round(k1_again_ms, 4),
+         **bound(x16.numel() + sep_b + slots * 128, col_ops),
+         "separable_flop_ms": round(sep_own / F32_FLOP_PER_S * 1e3, 4),
          "library_ms": None},
         {"name": "recon", "route": "cuda",
          "source": "jpgenc_tpu_torch/csrc/recon.cu",

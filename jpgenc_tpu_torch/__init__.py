@@ -4,13 +4,15 @@ The JAX package `jpgenc_tpu` stays the reference; this package imports
 `torch`, never `jax` and nothing of `jpgenc_tpu` (it keeps its own copy of
 the numpy host tier: tables, layout, huffman, config, container, native,
 ref, utils). The slices that are in: the batched baseline encode of RGB
-4:2:0/4:2:2/4:4:4 and of gray, with the standard tables or with two-pass
-optimized Huffman (optimize=True), no restart interval; and the decoder,
-from any baseline JFIF file (restart intervals included) to pixels on the
-device:
+4:2:0/4:2:2/4:4:4 and of gray in every mode of the reference's `encode`
+(standard tables or two-pass optimized Huffman, any restart interval, frames
+of any width, dct_method "float" or the libjpeg-exact "islow"); and the
+decoder, from any baseline JFIF file (restart intervals included) to pixels
+on the device:
 
     jpgenc_tpu_torch.parallel.mesh.encode_batch(imgs, quality=75, device="cuda")
     jpgenc_tpu_torch.api.encode(img, quality=75, optimize=True, device="cuda")
+    jpgenc_tpu_torch.api.encode(img, restart_interval=120, dct_method="islow")
     jpgenc_tpu_torch.api.decode_batch(files, to_device=True, device="cuda")
     jpgenc_tpu_torch.api.decode(data, device="cuda")
 
@@ -30,4 +32,4 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

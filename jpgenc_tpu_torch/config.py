@@ -22,7 +22,7 @@ class EncodeConfig:
     # 'float': float32 DCT as one dense operator (the throughput path,
     # default); 'islow': libjpeg-exact integer pipeline — output files are
     # byte-identical to libjpeg-turbo's at matched settings (the
-    # conformance mode; not ported yet).
+    # conformance mode: torch int32 ops feeding kernel A).
     dct_method: str = "float"
 
     def __post_init__(self):

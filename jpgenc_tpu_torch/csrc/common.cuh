@@ -4,8 +4,9 @@
 // Two halves, each used by a fused kernel and by its split counterpart, so
 // that both hold the same values bit for bit:
 //
-//  * the transform: tile_transform (colour, the dense operator over an MCU's
-//    raw RGB bytes) and gray_tile_transform ((x - 128) @ KDCT_ZZ). An image
+//  * the transform: tile_arithmetic behind one of two loaders (colour, the
+//    dense operator over an MCU's raw RGB bytes; tile_transform is the row
+//    kernels' pair) and gray_tile_transform ((x - 128) @ KDCT_ZZ). An image
 //    can be coded by K1A (no optimize) and by K1 + kernel A (optimize), and
 //    the capacity ladder may switch between them, so the per-coefficient
 //    float sequence is ONE function: sums in k order with explicit
@@ -53,27 +54,22 @@ __device__ __forceinline__ int quantize(float acc, float bias, float q) {
   return round_div(__fadd_rn(acc, bias), q);
 }
 
-// Colour. SLOTS consecutive MCUs (raster order) of one image, starting at MCU
-// first_g (which may be -1: the slot is then zero), one thread per output
-// coefficient, L = (HS*VS + 2) * 64 threads.
-//  1. The MCUs' pixel bytes go to shared memory xs [SLOTS][K] as floats in
-//     natural order (pixel row, pixel, channel), with row and column clamped
-//     to H-1 / W-1: that clamp is the replicate pad.
-//  2. Thread tid computes coefficient tid of every slot as a dot product with
-//     column tid of the dense operator m [K, L] (k1_dct._dense_operator
-//     'natural'), read through L1/L2.
-//  3. The quantized values replace xs as int zq [SLOTS][L] (returned).
-// Every thread of the block must call it; it synchronises the block.
+// Colour, in two parts so that every colour kernel of the dense operator
+// shares ONE arithmetic: a loader that fills xs [SLOTS][K] with the MCUs'
+// pixel bytes as floats in natural order (pixel row, pixel, channel), and
+// tile_arithmetic. L = (HS*VS + 2) * 64 threads, one per output coefficient.
+//
+// Loader 1, from the image: SLOTS consecutive MCUs (raster order) of one
+// image, starting at MCU first_g (which may be -1: the slot is then zero),
+// read as strided 3*8*HS-byte row pieces with row and column clamped to H-1 /
+// W-1: that clamp is the replicate pad.
 template <int HS, int VS, int SLOTS>
-__device__ __forceinline__ int* tile_transform(
+__device__ __forceinline__ void load_tile_image(
     const uint8_t* __restrict__ im, int H, int W, int mx, int n_mcus,
-    int first_g, const float* __restrict__ m, const float* __restrict__ bias,
-    const float* __restrict__ q, float* xs, int tid) {
+    int first_g, float* xs, int tid) {
   constexpr int L = (HS * VS + 2) * 64;
   constexpr int MH = 8 * VS, ROW = 3 * 8 * HS;   // MCU rows, bytes per row
   constexpr int K = MH * ROW;                    // input bytes per MCU
-  static_assert(L <= K, "coefficients reuse the pixel scratch");
-
   for (int i = tid; i < SLOTS * K; i += L) {
     const int s = i / K, e = i - s * K;
     const int g = first_g + s;
@@ -88,7 +84,47 @@ __device__ __forceinline__ int* tile_transform(
     }
     xs[i] = val;
   }
-  __syncthreads();
+}
+
+// Loader 2, from the MCU-contiguous repack (k1_dct.mcu_bytes: each MCU's K
+// padded bytes back to back, already in natural order): n_valid <= SLOTS
+// MCUs starting at src, read as 16-byte vectors (K is a multiple of 16 and
+// src is 16-byte aligned, so a vector never straddles two MCUs); the slots
+// past n_valid are zero.
+template <int K, int SLOTS>
+__device__ __forceinline__ void load_tile_packed(
+    const uint8_t* __restrict__ src, int n_valid, float* xs, int tid,
+    int n_threads) {
+  static_assert(K % 16 == 0, "an MCU is a whole number of 16-byte vectors");
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  for (int i = tid; i < SLOTS * K / 16; i += n_threads) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i * 16 < n_valid * K) v = __ldg(s4 + i);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float4* d = reinterpret_cast<float4*>(xs + i * 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      d[j] = make_float4(static_cast<float>(w[j] & 255u),
+                         static_cast<float>((w[j] >> 8) & 255u),
+                         static_cast<float>((w[j] >> 16) & 255u),
+                         static_cast<float>(w[j] >> 24));
+  }
+}
+
+// The arithmetic, on xs as a loader left it (it synchronises first):
+//  1. Thread tid computes coefficient tid of every slot as a dot product with
+//     column tid of the dense operator m [K, L] (k1_dct._dense_operator
+//     'natural'), read through L1/L2.
+//  2. The quantized values replace xs as int zq [SLOTS][L] (returned).
+// Every thread of the block must call it; it synchronises the block.
+template <int HS, int VS, int SLOTS>
+__device__ __forceinline__ int* tile_arithmetic(
+    const float* __restrict__ m, const float* __restrict__ bias,
+    const float* __restrict__ q, float* xs, int tid) {
+  constexpr int L = (HS * VS + 2) * 64;
+  constexpr int K = 8 * VS * 3 * 8 * HS;         // input bytes per MCU
+  static_assert(L <= K, "coefficients reuse the pixel scratch");
+  __syncthreads();                               // xs is loaded
 
   float acc[SLOTS];
 #pragma unroll
@@ -114,6 +150,16 @@ __device__ __forceinline__ int* tile_transform(
   for (int s = 0; s < SLOTS; ++s) zq[s * L + tid] = quantize(acc[s], bc, qc);
   __syncthreads();
   return zq;
+}
+
+// The row kernels' transform (K1A, K1): loader 1 + the arithmetic.
+template <int HS, int VS, int SLOTS>
+__device__ __forceinline__ int* tile_transform(
+    const uint8_t* __restrict__ im, int H, int W, int mx, int n_mcus,
+    int first_g, const float* __restrict__ m, const float* __restrict__ bias,
+    const float* __restrict__ q, float* xs, int tid) {
+  load_tile_image<HS, VS, SLOTS>(im, H, W, mx, n_mcus, first_g, xs, tid);
+  return tile_arithmetic<HS, VS, SLOTS>(m, bias, q, xs, tid);
 }
 
 // Gray. SLOTS consecutive 8x8 blocks (raster order over the block grid, mx

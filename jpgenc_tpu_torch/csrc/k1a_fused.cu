@@ -12,8 +12,11 @@
 //  3. DC DPCM. Blocks run in no order, so the TPU kernel's carry across rows
 //     (k1a_fused.py:93-124) cannot be used. Instead the MCU before the tile
 //     is recomputed as slot 0 of the same transform: its coefficients equal
-//     the neighbour block's own bit for bit. The predictor resets at MCU 0
-//     of each image (no restart interval yet).
+//     the neighbour block's own bit for bit. The predictor resets at every
+//     segment start, g % mps == 0 with mps = restart_interval or n_mcus
+//     (k1a_fused.py:110-114); a tile boundary inside a segment still needs
+//     the recomputed slot. Each image owns n_slots >= n_mcus * (nb+2) output
+//     slots (whole segments); the wrapper zeroes the pad slots.
 //  4. Entropy: one warp per 8x8 block (common.cuh's code_block, shared with
 //     kernel A in block_pack.cu).
 //
@@ -32,7 +35,7 @@ constexpr int kTile = 8;           // MCUs per thread block
 template <int HS, int VS>
 __global__ void __launch_bounds__((HS * VS + 2) * 64)
 k1a_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
-           const float* __restrict__ m, const float* __restrict__ bias,
+           int mps, int n_slots, const float* __restrict__ m, const float* __restrict__ bias,
            const float* __restrict__ q, const int* __restrict__ ac_rows,
            const int* __restrict__ dc_rows, const int* __restrict__ misc,
            int w_blk, uint32_t* __restrict__ buf, int* __restrict__ bits,
@@ -70,11 +73,12 @@ k1a_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
     if (g >= n_mcus) break;                      // warp-uniform, g rises
     const int* z = zq + s * L;
     const int* zprev = zq + (s - 1) * L;
+    const bool reset = g % mps == 0;             // segment start
     int pred;
-    if (blk == 0) pred = g == 0 ? 0 : zprev[(NB - 1) * 64];
+    if (blk == 0) pred = reset ? 0 : zprev[(NB - 1) * 64];
     else if (blk < NB) pred = z[(blk - 1) * 64];
-    else pred = g == 0 ? 0 : zprev[blk * 64];
-    const size_t slot = (static_cast<size_t>(n) * n_mcus + g) * NB2 + blk;
+    else pred = reset ? 0 : zprev[blk * 64];
+    const size_t slot = static_cast<size_t>(n) * n_slots + g * NB2 + blk;
     const int tab = blk < NB ? 0 : 1;
     code_block(z[blk * 64 + lane], z[blk * 64 + lane + 32],
                z[blk * 64] - pred, tab, tab, tabs, ws[warp], w_blk,
@@ -83,16 +87,18 @@ k1a_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
 }
 
 template <int HS, int VS>
-cudaError_t launch(const void* img, int B, int H, int W, const void* m,
+cudaError_t launch(const void* img, int B, int H, int W, int mps,
+                   int n_slots, const void* m,
                    const void* bias, const void* q, const void* ac_rows,
                    const void* dc_rows, const void* misc, int w_blk,
                    void* buf, void* bits, void* zz_out, cudaStream_t stream) {
   const int my = (H + 8 * VS - 1) / (8 * VS);
   const int mx = (W + 8 * HS - 1) / (8 * HS);
   const int n_mcus = my * mx;
+  if (mps < 1 || n_slots < n_mcus * (HS * VS + 2)) return cudaErrorInvalidValue;
   const dim3 grid((n_mcus + kTile - 1) / kTile, B);
   k1a_kernel<HS, VS><<<grid, (HS * VS + 2) * 64, 0, stream>>>(
-      static_cast<const uint8_t*>(img), H, W, mx, n_mcus,
+      static_cast<const uint8_t*>(img), H, W, mx, n_mcus, mps, n_slots,
       static_cast<const float*>(m), static_cast<const float*>(bias),
       static_cast<const float*>(q), static_cast<const int*>(ac_rows),
       static_cast<const int*>(dc_rows), static_cast<const int*>(misc), w_blk,
@@ -105,10 +111,12 @@ cudaError_t launch(const void* img, int B, int H, int W, const void* m,
 
 // img [B,H,W,3] u8; m [3*64*nb, (nb+2)*64] f32 (natural basis); bias, q
 // [(nb+2)*64] f32; ac_rows [4,128], dc_rows [2,128], misc [4] i32;
-// buf [B, n_mcu*(nb+2), w_blk] u32; bits [B, n_mcu*(nb+2)] i32;
-// zz_out [B, n_mcu, (nb+2)*64] i16 or null. Returns cudaGetLastError().
+// mps MCUs per restart segment; buf [B, n_slots, w_blk] u32 and bits
+// [B, n_slots] i32 with n_slots >= n_mcu*(nb+2) (the slots past it are not
+// written); zz_out [B, n_mcu, (nb+2)*64] i16 or null. Returns
+// cudaGetLastError().
 extern "C" int k1a_fused_launch(const void* img, int B, int H, int W, int hs,
-                                int vs, const void* m, const void* bias,
+                                int vs, int mps, int n_slots, const void* m, const void* bias,
                                 const void* q, const void* ac_rows,
                                 const void* dc_rows, const void* misc,
                                 int w_blk, void* buf, void* bits,
@@ -118,11 +126,11 @@ extern "C" int k1a_fused_launch(const void* img, int B, int H, int W, int hs,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (hs == 2 && vs == 2)
-    err = launch<2, 2>(img, B, H, W, m, bias, q, ac_rows, dc_rows, misc, w_blk, buf, bits, zz_out, st);
+    err = launch<2, 2>(img, B, H, W, mps, n_slots, m, bias, q, ac_rows, dc_rows, misc, w_blk, buf, bits, zz_out, st);
   else if (hs == 2 && vs == 1)
-    err = launch<2, 1>(img, B, H, W, m, bias, q, ac_rows, dc_rows, misc, w_blk, buf, bits, zz_out, st);
+    err = launch<2, 1>(img, B, H, W, mps, n_slots, m, bias, q, ac_rows, dc_rows, misc, w_blk, buf, bits, zz_out, st);
   else if (hs == 1 && vs == 1)
-    err = launch<1, 1>(img, B, H, W, m, bias, q, ac_rows, dc_rows, misc, w_blk, buf, bits, zz_out, st);
+    err = launch<1, 1>(img, B, H, W, mps, n_slots, m, bias, q, ac_rows, dc_rows, misc, w_blk, buf, bits, zz_out, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

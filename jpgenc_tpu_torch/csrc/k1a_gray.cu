@@ -10,8 +10,10 @@
 //     K1 kernel (k1_dct.cu): the capacity ladder can switch between the fused
 //     and the split path, so both must hold the same coefficients
 //     (k1a_fused.py:368-373).
-//  2. DC DPCM against the previous block in raster order, reset at block 0 of
-//     each image. The TPU kernel carries the DC across MCU rows in VMEM over a
+//  2. DC DPCM against the previous block in raster order, reset at every
+//     segment start (g % mps == 0, mps = restart_interval or n_blocks). Each
+//     image owns n_slots >= n_blocks output slots (whole segments); the
+//     wrapper zeroes the pad slots. The TPU kernel carries the DC across MCU rows in VMEM over a
 //     sequential grid (k1a_fused.py:386-397); CUDA blocks run in no order, so
 //     the block before the tile is recomputed as slot 0 of the same
 //     transform: 1/kTile more transform work, and its DC equals its owner's
@@ -32,8 +34,9 @@ constexpr int kWarps = kGrayThreads / 32;
 
 __global__ void __launch_bounds__(kGrayThreads)
 k1a_gray_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
-                int n_mcus, const float* __restrict__ kdct,
-                const float* __restrict__ q, const int* __restrict__ ac_rows,
+                int n_mcus, int mps, int n_slots,
+                const float* __restrict__ kdct, const float* __restrict__ q,
+                const int* __restrict__ ac_rows,
                 const int* __restrict__ dc_rows, const int* __restrict__ misc,
                 int w_blk, uint32_t* __restrict__ buf, int* __restrict__ bits,
                 int16_t* __restrict__ zz_out) {
@@ -65,8 +68,8 @@ k1a_gray_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
     const int g = g0 + job;
     if (g >= n_mcus) break;                      // warp-uniform, g rises
     const int* z = zq + (job + 1) * 64;
-    const int pred = g == 0 ? 0 : z[-64];
-    const size_t slot = static_cast<size_t>(n) * n_mcus + g;
+    const int pred = g % mps == 0 ? 0 : z[-64];
+    const size_t slot = static_cast<size_t>(n) * n_slots + g;
     code_block(z[lane], z[lane + 32], z[0] - pred, 0, 0, tabs, ws[warp],
                w_blk, buf + slot * w_blk, bits + slot, lane);
   }
@@ -76,10 +79,11 @@ k1a_gray_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
 
 // img [B,H,W] u8; kdct [64,64] f32 (pixel -> zigzag coefficient); q [64] f32
 // (zigzag order); ac_rows [4,128], dc_rows [2,128], misc [4] i32;
-// buf [B, n_blocks, w_blk] u32; bits [B, n_blocks] i32; zz_out
-// [B, n_blocks, 64] i16 or null. Returns cudaGetLastError().
-extern "C" int k1a_gray_launch(const void* img, int B, int H, int W,
-                               const void* kdct, const void* q,
+// mps blocks per restart segment; buf [B, n_slots, w_blk] u32 and bits
+// [B, n_slots] i32 with n_slots >= n_blocks (the slots past it are not
+// written); zz_out [B, n_blocks, 64] i16 or null. Returns cudaGetLastError().
+extern "C" int k1a_gray_launch(const void* img, int B, int H, int W, int mps,
+                               int n_slots, const void* kdct, const void* q,
                                const void* ac_rows, const void* dc_rows,
                                const void* misc, int w_blk, void* buf,
                                void* bits, void* zz_out, void* stream) {
@@ -87,9 +91,10 @@ extern "C" int k1a_gray_launch(const void* img, int B, int H, int W,
     return static_cast<int>(cudaErrorInvalidValue);
   const int mx = (W + 7) / 8;
   const int n_mcus = ((H + 7) / 8) * mx;
+  if (mps < 1 || n_slots < n_mcus) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_mcus + kTile - 1) / kTile, B);
   k1a_gray_kernel<<<grid, kGrayThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), H, W, mx, n_mcus,
+      static_cast<const uint8_t*>(img), H, W, mx, n_mcus, mps, n_slots,
       static_cast<const float*>(kdct), static_cast<const float*>(q),
       static_cast<const int*>(ac_rows), static_cast<const int*>(dc_rows),
       static_cast<const int*>(misc), w_blk, static_cast<uint32_t*>(buf),

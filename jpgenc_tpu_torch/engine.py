@@ -14,9 +14,19 @@ The split path (two-pass optimized Huffman):
   pass 2: zigzag + tables -> [kernel A] per-block packed words -> [kernel B]
           -> the same compaction, fetch and finalize
 
+The integer path (dct_method="islow", libjpeg-exact) is the split path
+with ops/islow.py in K1's place: torch int32 ops -> scan gather -> the same
+zigzag tensor -> kernel A -> kernel B, with the standard tables or, after a
+histogram, the image's own.
+
+Restart intervals change no stage's shape logic: every slot array is padded
+to whole segments (S = n_segments * blocks_per_segment), kernel B sees
+B * n_segments segments, the compaction aligns segment starts and the host
+finalize joins them with RSTn.
+
 `EncodePlan` takes the role of the reference's `DevicePlan`: its buffers are
-the transform operator, the bias, the quant row, the packed standard
-Huffman tables and the layout's symbol plan.
+the transform operators, the bias, the quant rows, the packed standard
+Huffman tables and the layout's symbol plan and scan gather.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from torch import nn
 
 from jpgenc_tpu_torch import layout as L, native, tables as T
 from jpgenc_tpu_torch.huffman import build_codes, optimize_tables
-from jpgenc_tpu_torch.ops import entropy, pack
+from jpgenc_tpu_torch.ops import entropy, islow, pack
 from jpgenc_tpu_torch.ops.cuda import block_pack, k1_dct, k1a_fused, seg_merge
 from jpgenc_tpu_torch.ops.cuda.block_pack import packed_tables
 from jpgenc_tpu_torch.ops.transform import _KDCT_ZZ
@@ -51,19 +61,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
-
-
-def reject_unported(*, restart_interval: int = 0, dct_method: str = "float"):
-    """Raise NotImplementedError naming the ROADMAP item for modes outside
-    the ported slices."""
-    if restart_interval:
-        raise NotImplementedError(
-            "restart_interval != 0 is not ported yet: ROADMAP.md Queue 1 "
-            "item 5")
-    if dct_method != "float":
-        raise NotImplementedError(
-            f"dct_method={dct_method!r} is not ported yet: ROADMAP.md Queue 1 "
-            "item 6")
 
 
 class SymbolPlan(NamedTuple):
@@ -136,20 +133,31 @@ def tables_from_freq(freq: np.ndarray, n_tabs: int):
     return dc, ac
 
 
-def tables_from_reference(qt_host, luts_dc, luts_ac) -> dict:
+def tables_from_reference(qt_host, luts_dc, luts_ac, separable=None) -> dict:
     """The parameters carried across from the reference: its numpy quant
     tables [2, 64] (natural order) and packed Huffman LUTs ([2, 256] each,
     as `jpgenc_tpu.engine.luts_from_tables` makes them; a gray image's one
     table fills both rows; [B, 2, 256] for one optimized set per image) ->
-    the port's CPU tensors: qzz [2, 64] f32 in zigzag order, and ac_rows /
-    dc_rows / misc (block_pack.packed_tables), with the same leading
-    dimension as the LUTs."""
+    the port's CPU tensors: qzz [2, 64] f32 in zigzag order, qnat [2, 64]
+    int32 in natural order (the islow path's), and ac_rows / dc_rows / misc
+    (block_pack.packed_tables), with the same leading dimension as the LUTs.
+    separable: the reference's (bd_y, sc, q_out) as its k1_dct.
+    build_operators returns them, as numpy -> sep (k1_dct.
+    separable_operator) and q_out [(nb+2)*64] f32, the separable K1 kernel's
+    operands."""
     zz = np.asarray(T.ZIGZAG)
-    qzz = np.asarray(qt_host).reshape(2, 64).astype(np.float32)[:, zz]
+    qnat = np.asarray(qt_host).reshape(2, 64)
+    qzz = qnat.astype(np.float32)[:, zz]
     ac_rows, dc_rows, misc = packed_tables(
         EntropyLUTs(dc=np.asarray(luts_dc), ac=np.asarray(luts_ac)))
-    return {"qzz": torch.from_numpy(np.ascontiguousarray(qzz)),
-            "ac_rows": ac_rows, "dc_rows": dc_rows, "misc": misc}
+    out = {"qzz": torch.from_numpy(np.ascontiguousarray(qzz)),
+           "qnat": torch.from_numpy(np.ascontiguousarray(qnat, np.int32)),
+           "ac_rows": ac_rows, "dc_rows": dc_rows, "misc": misc}
+    if separable is not None:
+        bd_y, sc, q_out = (np.asarray(a, np.float32) for a in separable)
+        out["sep"] = torch.from_numpy(k1_dct.separable_operator(bd_y, sc))
+        out["q_out"] = torch.from_numpy(q_out.reshape(-1).copy())
+    return out
 
 
 def scan_caps(layout, quality: int, tier: str = "safe") -> tuple[int, int]:
@@ -233,17 +241,18 @@ class EncodePlan(nn.Module):
     """Per-(layout, quant, tables) encode pipeline on one device.
 
     Buffers: the transform operator m (colour: the natural-basis dense
-    operator with its bias; gray: KDCT_ZZ, bias unused), the quant row q
-    (zigzag order; colour: luma tiled nb times then chroma twice), the
-    packed standard Huffman tables and the symbol plan of the split path.
-    forward(imgs, cap_u, w_blk) is the fused path; zz_and_histogram and
-    entropy_from_zz are the two passes of the split path. Both return the
-    compact word stream, per-segment bit counts and the per-image overflow
-    flag."""
+    operator with its bias; gray: KDCT_ZZ, bias unused), the separable
+    operator sep (colour), the quant row q (zigzag order; colour: luma tiled
+    nb times then chroma twice), the natural-order int32 quant tables qnat
+    (islow), the packed standard Huffman tables, the symbol plan of the
+    split path and the scan gather of the islow path.
+    forward(imgs, cap_u, w_blk) is the fused path; zz_and_histogram (or
+    zz_islow / zz_islow_and_histogram) and entropy_from_zz are the two
+    passes of the split path. Both return the compact word stream,
+    per-segment bit counts and the per-image overflow flag."""
 
     def __init__(self, layout, tables: dict, device="cuda"):
         super().__init__()
-        reject_unported(restart_interval=layout.restart_interval)
         dev = resolve_device(device)
         self.layout = layout
         self.walign = pack.walign_for(layout.blocks_per_segment)
@@ -255,11 +264,16 @@ class EncodePlan(nn.Module):
         else:
             m, bias = k1_dct._dense_operator(c0.hs, c0.vs, "natural")
             q = torch.cat([qzz[0].repeat(nb), qzz[1], qzz[1]])
+            sep = tables.get("sep")
+            if sep is None:
+                sep = torch.from_numpy(k1_dct.separable_operator(
+                    *k1_dct.build_operators(layout, tables["qnat"])[:2]))
+            self.register_buffer("sep", sep.contiguous().to(dev))
         self.register_buffer(
             "m", torch.from_numpy(np.ascontiguousarray(m)).to(dev))
         self.register_buffer("bias", torch.from_numpy(bias).reshape(-1).to(dev))
         self.register_buffer("q", q.contiguous().to(dev))
-        for name in ("ac_rows", "dc_rows", "misc"):
+        for name in ("qnat", "ac_rows", "dc_rows", "misc"):
             self.register_buffer(name, tables[name].contiguous().to(dev))
         sp = make_symbol_plan(layout)
         self.register_buffer("prev_same", torch.from_numpy(
@@ -267,8 +281,15 @@ class EncodePlan(nn.Module):
         for name in ("dc_tab", "ac_tab", "valid"):
             self.register_buffer(name, torch.from_numpy(
                 getattr(sp, name).astype(np.int32)).to(dev))
+        self.register_buffer("scan_gather", torch.from_numpy(
+            make_scan_gather(layout).astype(np.int64)).to(dev))
         #: adaptive length (u32 words) of the speculative one-copy fetch
         self.prefix_guess = 1024
+
+    @property
+    def standard_tables(self) -> tuple:
+        """The plan's own packed Huffman tables (shared by every image)."""
+        return self.ac_rows, self.dc_rows, self.misc
 
     def merge(self, buf, bits, cap_u: int, w_blk: int):
         """Per-block words -> kernel B -> compact stream (the shared tail of
@@ -288,19 +309,41 @@ class EncodePlan(nn.Module):
         coded with the plan's tables."""
         buf, bits = k1a_fused.fused_pixels_to_pack(
             imgs, self.layout, self.m, self.bias, self.q,
-            (self.ac_rows, self.dc_rows, self.misc), w_blk)
+            self.standard_tables, w_blk)
         return self.merge(buf, bits, cap_u, w_blk)
 
+    def zz_scan(self, imgs: torch.Tensor):
+        """Float pass 1 without the histogram: (scan-ordered zigzag blocks
+        [B, S, 64] int16, S padded to whole segments, and their DC
+        differences [B, S] int32); both stay on the device for pass 2."""
+        zz = k1_dct.fused_pixels_to_scan(
+            imgs, self.layout, self.m, self.bias, self.q,
+            sep=None if self.layout.is_gray else self.sep)
+        return zz, block_pack.slot_metadata(self.prev_same, zz)
+
+    def zz_islow(self, imgs: torch.Tensor):
+        """The same from the libjpeg-exact integer pipeline (ops/islow.py,
+        engine.py:331-335): raster blocks -> scan gather -> int16. A pad
+        slot repeats block 0; its valid flag is 0, so it codes to nothing."""
+        zz = islow.image_to_zigzag_islow(imgs, self.layout, self.qnat)
+        zz = zz.index_select(1, self.scan_gather).to(torch.int16)
+        return zz, block_pack.slot_metadata(self.prev_same, zz)
+
+    def histogram(self, zz: torch.Tensor, dcdiff: torch.Tensor):
+        """Per-image symbol histogram [B, 2, 2, 256] int32."""
+        return entropy.symbol_histogram(zz, dcdiff, self.ac_tab, self.dc_tab,
+                                        self.valid)
+
     def zz_and_histogram(self, imgs: torch.Tensor):
-        """Optimize-mode pass 1 (engine.py:502-505): (scan-ordered zigzag
-        blocks [B, n_slots, 64] int16 and their DC differences [B, n_slots]
-        int32, which both stay on the device for pass 2, and the per-image
-        symbol histogram [B, 2, 2, 256] int32)."""
-        zz = k1_dct.fused_pixels_to_scan(imgs, self.layout, self.m, self.bias,
-                                         self.q)
-        dcdiff = block_pack.slot_metadata(self.prev_same, zz)
-        return zz, dcdiff, entropy.symbol_histogram(
-            zz, dcdiff, self.ac_tab, self.dc_tab, self.valid)
+        """Optimize-mode pass 1 (engine.py:502-505): zz_scan and the
+        histogram of its blocks."""
+        zz, dcdiff = self.zz_scan(imgs)
+        return zz, dcdiff, self.histogram(zz, dcdiff)
+
+    def zz_islow_and_histogram(self, imgs: torch.Tensor):
+        """Optimize-mode pass 1 of the integer path (engine.py:337-341)."""
+        zz, dcdiff = self.zz_islow(imgs)
+        return zz, dcdiff, self.histogram(zz, dcdiff)
 
     def optimized_tables(self, hist: torch.Tensor):
         """Between the passes, on the host: the histogram [B, 2, 2, 256] ->
@@ -359,16 +402,22 @@ class EncodePlan(nn.Module):
 
 
 @functools.lru_cache(maxsize=16)
-def get_plan(height: int, width: int, subsampling: str, quality: int,
-             device: str) -> EncodePlan:
-    """Cached plan for one geometry, quality and device, with the standard
-    Annex K tables and no restart interval. subsampling is "gray" for
-    single-component frames."""
+def _cached_plan(height: int, width: int, subsampling: str, quality: int,
+                 device: str, restart_interval: int) -> EncodePlan:
     luts = luts_from_tables(*ref_encoder.standard_tables())
     tables = tables_from_reference(qtables_for_quality(quality), luts.dc,
                                    luts.ac)
-    return EncodePlan(L.make_layout(height, width, subsampling, 0), tables,
-                      device)
+    return EncodePlan(L.make_layout(height, width, subsampling,
+                                    restart_interval), tables, device)
+
+
+def get_plan(height: int, width: int, subsampling: str, quality: int,
+             device: str, restart_interval: int = 0) -> EncodePlan:
+    """Cached plan for one geometry, quality, device and restart interval
+    (MCUs per segment, 0: one segment), with the standard Annex K tables.
+    subsampling is "gray" for single-component frames."""
+    return _cached_plan(height, width, subsampling, quality, device,
+                        restart_interval)
 
 
 def as_device_batch(imgs, device: torch.device) -> torch.Tensor:

@@ -39,16 +39,20 @@ _I = ctypes.c_int
 #: c_void_p, ints as c_int). Each returns cudaGetLastError() as an int.
 SIGNATURES = {
     "k1a_fused_launch": [_P, _I, _I, _I, _I, _I,      # img, B, H, W, hs, vs
+                         _I, _I,                      # mps, n_slots
                          _P, _P, _P,                  # m, bias, q
                          _P, _P, _P,                  # ac_rows, dc_rows, misc
                          _I, _P, _P, _P, _P],         # w_blk, buf, bits, zz, stream
     "k1a_gray_launch": [_P, _I, _I, _I,               # img, B, H, W
+                        _I, _I,                       # mps, n_slots
                         _P, _P,                       # kdct, q
                         _P, _P, _P,                   # ac_rows, dc_rows, misc
                         _I, _P, _P, _P, _P],          # w_blk, buf, bits, zz, stream
-    "k1_dct_launch": [_P, _I, _I, _I, _I, _I,         # img, B, H, W, hs, vs
-                      _P, _P, _P, _P, _P],            # m, bias, q, zz, stream
-    "k1_gray_launch": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "k1_dct_launch": [_I, _P, _I, _I, _I, _I, _I,     # variant, src, B, H, W, hs, vs
+                      _I,                             # n_slots
+                      _P, _P, _P, _P, _P],            # op, bias, q, zz, stream
+    "k1_gray_launch": [_P, _I, _I, _I, _I,            # img, B, H, W, n_slots
+                       _P, _P, _P, _P],               # kdct, q, zz, stream
     "block_pack_launch": [_P, _P, _P, _P, _P,         # zz, dcdiff, actab, dctab, valid
                           _I, _I,                     # B, n_slots
                           _P, _P, _P, _I,             # ac_rows, dc_rows, misc, n_tables

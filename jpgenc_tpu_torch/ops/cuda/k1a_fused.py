@@ -10,12 +10,16 @@
   transform_plain (ops/cuda/k1_dct.py, K1's plain version): the math of the
     kernels' first half (k1a_fused.py:62-71, :376-378);
   entropy_plain: DC DPCM (the Y chain in (mcu, blk) order, chroma per MCU,
-    gray block to block in raster order; reset at MCU 0 of each image) and
+    gray block to block in raster order; reset at every restart-segment
+    start, MCU g with g % mps == 0, mps = restart_interval or n_mcus) and
     the per-block pack of block_pack.pack_blocks_plain — bit-identical to
     the kernel given the same coefficients.
 
 Scan order is (mcu, blk) row-major, so [B, n_mcu, nb+2, w_blk] outputs are
-[B, n_slots, w_blk] slot arrays by a free reshape.
+[B, n_slots, w_blk] slot arrays by a free reshape. With a restart interval
+both outputs are padded to whole segments, S = n_segments *
+blocks_per_segment slots, with zero words and zero bits
+(k1a_fused.py:587-592).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from jpgenc_tpu_torch.kernels import build
 from jpgenc_tpu_torch.ops.cuda.block_pack import pack_blocks_plain
 from jpgenc_tpu_torch.ops.cuda.k1_dct import (check_operands, geometry,
+                                              n_slots_padded, pad_slots,
                                               transform_plain)
 
 #: launches of the colour and of the gray CUDA kernel, and calls of the
@@ -40,22 +45,27 @@ MAX_W_BLK = 56
 def entropy_plain(zz: torch.Tensor, layout, tables, w_blk: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantized zigzag [B, n_mcu, (nb+2)*64] (gray: [B, n_blocks, 64]) ->
-    (buf [B, n_slots, w_blk] int32 u32 bit patterns, bits [B, n_slots]
-    int32). tables: block_pack.packed_tables(luts) on zz's device."""
+    (buf [B, S, w_blk] int32 u32 bit patterns, bits [B, S] int32), S padded
+    to whole segments. tables: block_pack.packed_tables(luts) on zz's
+    device."""
     _, _, nb = geometry(layout)
     b, n_mcu = zz.shape[0], zz.shape[1]
     per = 1 if layout.is_gray else nb + 2            # blocks per MCU
+    mps = layout.restart_interval or layout.n_mcus
     z = zz.reshape(b, n_mcu, per, 64)
     dc = z[..., 0].to(torch.int64)                   # [B, n_mcu, per]
-    prev = torch.zeros_like(dc)                      # MCU 0: predictor reset
-    prev[:, :, 1:nb] = dc[:, :, :nb - 1]             # Y chain within the MCU
-    prev[:, 1:, 0] = dc[:, :-1, nb - 1]              # ... from the last MCU
+    prev = torch.zeros_like(dc)
+    prev[:, 1:, 0] = dc[:, :-1, nb - 1]              # Y from the last MCU
     prev[:, 1:, nb:] = dc[:, :-1, nb:]               # Cb, Cr per MCU
+    reset = torch.arange(n_mcu, device=zz.device) % mps == 0
+    prev[:, reset] = 0                               # segment start
+    prev[:, :, 1:nb] = dc[:, :, :nb - 1]             # Y chain within the MCU
     tab = (torch.arange(per, device=zz.device) >= nb).to(torch.int64)
     buf, bits = pack_blocks_plain(z.reshape(-1, 64), (dc - prev).reshape(-1),
                                   tab.expand(b, n_mcu, per).reshape(-1),
                                   tables, w_blk)
-    return buf.reshape(b, -1, w_blk), bits.reshape(b, -1)
+    return (pad_slots(buf.reshape(b, -1, w_blk), layout),
+            pad_slots(bits.reshape(b, -1), layout))
 
 
 def pixels_to_pack_plain(imgs, layout, m, bias, q, tables, w_blk: int):
@@ -68,8 +78,9 @@ def pixels_to_pack_plain(imgs, layout, m, bias, q, tables, w_blk: int):
 
 def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
                          w_blk: int, return_zz: bool = False):
-    """[B, H, W, 3] u8 (gray: [B, H, W]) -> (buf [B, n_slots, w_blk] int32,
-    bits [B, n_slots] int32[, zz [B, n_mcu, (nb+2)*64] int16]).
+    """[B, H, W, 3] u8 (gray: [B, H, W]) -> (buf [B, S, w_blk] int32,
+    bits [B, S] int32[, zz [B, n_mcu, (nb+2)*64] int16]), S = n_segments *
+    blocks_per_segment slots, the pad slots zero.
 
     Operands as k1_dct.transform_plain; tables is one shared set,
     block_pack.packed_tables(luts) (gray codes with table 0). Blocks that
@@ -99,11 +110,15 @@ def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
                              f"expected contiguous {shape} int32 on "
                              f"{imgs.device}")
     b, h, w = imgs.shape[:3]
-    n_slots = layout.n_scan
+    n_slots, mps = n_slots_padded(layout), \
+        layout.restart_interval or layout.n_mcus
     buf = torch.empty((b, n_slots, w_blk), dtype=torch.int32,
                       device=imgs.device)
     bits = torch.empty((b, n_slots), dtype=torch.int32, device=imgs.device)
-    zz = (torch.empty((b, layout.n_mcus, n_slots // layout.n_mcus * 64),
+    if n_slots > layout.n_scan:
+        buf[:, layout.n_scan:].zero_()
+        bits[:, layout.n_scan:].zero_()
+    zz = (torch.empty((b, layout.n_mcus, layout.blocks_per_mcu * 64),
                       dtype=torch.int16, device=imgs.device)
           if return_zz else None)
     zz_ptr = zz.data_ptr() if zz is not None else None
@@ -112,12 +127,12 @@ def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
         stream = torch.cuda.current_stream().cuda_stream
         if layout.is_gray:
             rc = lib.k1a_gray_launch(
-                imgs.data_ptr(), b, h, w, m.data_ptr(), q.data_ptr(),
-                ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
+                imgs.data_ptr(), b, h, w, mps, n_slots, m.data_ptr(),
+                q.data_ptr(), ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
                 w_blk, buf.data_ptr(), bits.data_ptr(), zz_ptr, stream)
         else:
             rc = lib.k1a_fused_launch(
-                imgs.data_ptr(), b, h, w, hs, vs,
+                imgs.data_ptr(), b, h, w, hs, vs, mps, n_slots,
                 m.data_ptr(), bias.data_ptr(), q.data_ptr(),
                 ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
                 w_blk, buf.data_ptr(), bits.data_ptr(), zz_ptr, stream)

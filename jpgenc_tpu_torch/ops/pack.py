@@ -3,7 +3,8 @@
 
 Everything here except `wcompact_unstuffed` is integer host arithmetic
 copied from the reference; tests/test_torch_host.py pins each copy equal to
-its original.
+its original. `wcompact_unstuffed` is XLA ops in the reference and torch ops
+here, batched over the leading image dimension.
 """
 from __future__ import annotations
 
@@ -62,21 +63,51 @@ def wcompact_unstuffed(seg_words: torch.Tensor, seg_bits: torch.Tensor,
                        cap_w: int, walign: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Segments -> one compact word stream whose little-endian memory image
-    is the unstuffed byte stream (pack.py:195-235).
+    is the unstuffed byte stream (pack.py:195-266), for a batch of images.
 
-    seg_words: [..., n_seg, W] int32 holding MSB-first u32 bit patterns;
-    seg_bits: [..., n_seg]. Returns (wstream [..., cap_w] int32,
-    nbits [..., n_seg] int32). Only the single-segment case (no restart
-    interval) is ported: there the stream is a byte swap of a word prefix.
-    The output is valid only when sum(ceil(bits/32)) <= cap_w; the caller
-    checks on the host and retries a bigger tier otherwise."""
-    n_seg, w = seg_words.shape[-2:]
-    if n_seg != 1:
-        raise NotImplementedError(
-            "multi-segment wcompact (restart intervals) is not ported yet: "
-            "ROADMAP.md Queue 1 item 5")
-    k = min(cap_w, w)
-    out = _bswap32(seg_words[..., 0, :k])
-    if k < cap_w:
-        out = F.pad(out, (0, cap_w - k))
-    return out, seg_bits.to(torch.int32)
+    seg_words: [B, n_seg, W] int32 holding MSB-first u32 bit patterns;
+    seg_bits: [B, n_seg]. Returns (wstream [B, cap_w] int32, nbits
+    [B, n_seg] int32). One segment: a byte swap of a word prefix. Several
+    (restart intervals): segment starts are walign-word aligned in the
+    stream (seg_nwords_aligned; the host finalize uses the same offsets), so
+    the compaction gathers whole chunk rows of walign words: mark the
+    chunks where segments start, a prefix count maps every chunk to its
+    segment (a duplicate start, from an empty segment, resolves to the last
+    one: it owns the chunk), gather the chunk rows, zero the words past the
+    segment's content, byte swap. The output is valid only when the aligned
+    words fit cap_w; the caller checks on the host and retries a bigger
+    tier otherwise."""
+    b, n_seg, w = seg_words.shape
+    nbits = seg_bits.to(torch.int32)
+    if n_seg == 1:
+        k = min(cap_w, w)
+        out = _bswap32(seg_words[:, 0, :k])
+        if k < cap_w:
+            out = F.pad(out, (0, cap_w - k))
+        return out, nbits
+
+    dev = seg_words.device
+    wshift = walign.bit_length() - 1
+    nb64 = nbits.to(torch.int64)
+    nw = (nb64 + 31) >> 5                              # content words
+    nwa = seg_nwords_aligned(nb64, walign)
+    wbase = nwa.cumsum(dim=1) - nwa                    # aligned starts
+    cap_c = -(-cap_w // walign)
+
+    # chunk -> segment map; starts past the capacity land in a sink column
+    marks = torch.zeros((b, cap_c + 1), dtype=torch.int64, device=dev)
+    marks.scatter_add_(1, (wbase >> wshift).clamp(max=cap_c),
+                       torch.ones_like(wbase))
+    s = (marks[:, :cap_c].cumsum(dim=1) - 1).clamp(0, n_seg - 1)  # [B, cap_c]
+
+    # source rows: segment words padded to whole chunks, [B, rows, walign]
+    w8 = -(-w // walign)
+    rows = F.pad(seg_words, (0, w8 * walign - w)).reshape(b, n_seg * w8,
+                                                          walign)
+    q8 = torch.arange(cap_c, device=dev) - (wbase.gather(1, s) >> wshift)
+    idx = s * w8 + q8.clamp(0, w8 - 1)                 # [B, cap_c]
+    chunk = rows.gather(1, idx[:, :, None].expand(b, cap_c, walign))
+
+    off = q8[:, :, None] * walign + torch.arange(walign, device=dev)
+    out = torch.where(off < nw.gather(1, s)[:, :, None], _bswap32(chunk), 0)
+    return out.reshape(b, -1)[:, :cap_w].contiguous(), nbits

@@ -513,3 +513,189 @@ def test_recon_on_a_cuda_tensor_never_takes_the_plain_version(cuda,
     with pytest.raises(RuntimeError, match="nvcc not found"):
         api.decode(data, device="cuda")
     assert recon.plain_calls == before
+
+
+# --- restart intervals, the repack and the separable K1 kernels, islow --------
+
+DRI_CASES = [(120, 136, "420", 1), (120, 136, "420", 3), (61, 130, "420", 7),
+             (64, 126, "422", 3), (48, 62, "444", 7), (100, 62, "gray", 3),
+             (17, 23, "gray", 1), (128, 128, "gray", 16)]
+WIDE_CASES = [(16, 8208, "420"), (8, 8200, "444")]   # one MCU row, past the gate
+
+
+def _plan(h, w, sub, quality, dri):
+    plan = engine.get_plan(h, w, sub, quality, "cuda", dri)
+    return plan, (plan.layout, plan.m, plan.bias, plan.q), \
+        plan.standard_tables
+
+
+@pytest.mark.parametrize("h,w,sub,dri", DRI_CASES)
+@pytest.mark.parametrize("w_blk", [8, 56])
+def test_k1a_and_k1_kernels_with_restart_interval(cuda, h, w, sub, dri,
+                                                  w_blk):
+    """The predictor resets at every segment start, outputs are padded to
+    whole segments with zero slots, and K1 holds the same coefficients."""
+    imgs = np.stack([_frame(h, w, sub, seed=s) for s in (1, 2)])
+    _, ops, tabs = _plan(h, w, sub, 75, dri)
+    lay = ops[0]
+    s_pad = lay.n_segments * lay.blocks_per_segment
+    x = torch.from_numpy(imgs).to(cuda)
+    buf, bits, zz = k1a_fused.fused_pixels_to_pack(x, *ops, tabs, w_blk,
+                                                   return_zz=True)
+    torch.cuda.synchronize()
+    assert tuple(buf.shape) == (2, s_pad, w_blk) and \
+        tuple(bits.shape) == (2, s_pad)
+    ebuf, ebits = k1a_fused.entropy_plain(zz.to(torch.int32), lay, tabs,
+                                          w_blk)
+    assert torch.equal(ebits, bits) and torch.equal(ebuf, buf)
+    assert not bits[:, lay.n_scan:].any() and not buf[:, lay.n_scan:].any()
+    zz_k1 = k1_dct.fused_pixels_to_scan(x, *ops)
+    assert tuple(zz_k1.shape) == (2, s_pad, 64)
+    assert torch.equal(zz_k1[:, :lay.n_scan].reshape(-1), zz.reshape(-1))
+    assert not zz_k1[:, lay.n_scan:].any()
+
+
+@pytest.mark.parametrize("h,w,sub", CASES + WIDE_CASES)
+def test_k1_repack_kernel_equals_row_kernel(cuda, h, w, sub):
+    """The repack variant holds the row kernel's coefficients bit for bit
+    (one arithmetic, two loaders), and is the default past the row gate."""
+    imgs = np.stack([fixtures.synth_frame(h, w, seed=s) for s in (1, 2, 3)])
+    _, ops, _ = _plan(h, w, sub, 75, 0)
+    x = torch.from_numpy(imgs).to(cuda)
+    before = (k1_dct.launches, k1_dct.launches_repack, k1_dct.plain_calls)
+    rows = k1_dct.fused_pixels_to_scan(x, *ops, variant="rows")
+    rep = k1_dct.fused_pixels_to_scan(x, *ops, variant="repack")
+    torch.cuda.synchronize()
+    assert (k1_dct.launches, k1_dct.launches_repack, k1_dct.plain_calls) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    assert torch.equal(rows, rep)
+    _only_knife_edges(rep, x, ops)
+    wide = (h, w, sub) in WIDE_CASES
+    assert k1_dct.k1_variant(ops[0]) == ("repack" if wide else "rows")
+    k1_dct.fused_pixels_to_scan(x, *ops)
+    assert k1_dct.launches_repack == before[1] + 1 + int(wide)
+
+
+@pytest.mark.parametrize("h,w,sub", CASES + WIDE_CASES[:1])
+@pytest.mark.parametrize("quality", [75, 95])
+def test_k1_separable_kernel_vs_plain_and_k1(cuda, monkeypatch, h, w, sub,
+                                             quality):
+    """The separable kernel against color_plain (they may differ only where
+    the float64 value lies within 1e-4 of a rounding boundary) and against
+    the dense K1 under the knife-edge policy; K1_DENSE = False selects it."""
+    imgs = np.stack([fixtures.synth_frame(h, w, seed=s) for s in (1, 2, 3)])
+    plan, ops, _ = _plan(h, w, sub, quality, 0)
+    lay = ops[0]
+    x = torch.from_numpy(imgs).to(cuda)
+    before = (k1_dct.launches_color, k1_dct.plain_calls)
+    zz = k1_dct.fused_pixels_to_scan(x, *ops, variant="separable",
+                                     sep=plan.sep)
+    torch.cuda.synchronize()
+    assert (k1_dct.launches_color, k1_dct.plain_calls) == \
+        (before[0] + 1, before[1])
+    plain = k1_dct.color_plain(x, lay, plan.sep, plan.q)
+    d = zz != plain
+    assert int((zz.int() - plain.int()).abs().max()) <= 1
+    assert int(d.sum()) <= 1e-3 * d.numel()
+    # the same transform in float64
+    nb = lay.blocks_per_mcu - 2
+    p = k1_dct.mcu_planar(x, lay).double()
+    r, g, b = p[:, :, 0], p[:, :, 1], p[:, :, 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b - 128.0
+    cb = -0.168735892 * r + -0.331264108 * g + 0.5 * b
+    cr = 0.5 * r + -0.418687589 * g + -0.081312411 * b
+    kd, sc = plan.sep[:64].double(), plan.sep[64:].double()
+    exact = torch.cat([(y.reshape(*y.shape[:2], nb, 64) @ kd).flatten(2),
+                       cb @ sc, cr @ sc], dim=-1) / plan.q.double()
+    dist = ((exact - exact.floor()) - 0.5).abs().reshape(zz.shape)
+    assert bool((dist[d] < 1e-4).all())
+    dense = k1_dct.fused_pixels_to_scan(x, *ops, variant="rows")
+    dd = (zz.int() - dense.int()).abs()
+    assert int(dd.max()) <= 1
+    assert float((dd > 0).double().mean()) <= max(KNIFE_EDGE_FRAC,
+                                                  2.0 / dd.numel())
+    monkeypatch.setattr(k1_dct, "K1_DENSE", False)
+    assert torch.equal(plan.zz_scan(x)[0], zz)
+    assert k1_dct.launches_color == before[0] + 2
+
+
+def _rst_markers(scan: bytes) -> list[int]:
+    return [scan[i + 1] for i in range(len(scan) - 1)
+            if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7]
+
+
+@pytest.mark.parametrize("h,w,mode,dri", DRI_CASES)
+@pytest.mark.parametrize("optimize", [False, True])
+def test_restart_interval_round_trip_on_cuda(cuda, h, w, mode, dri,
+                                             optimize):
+    """A DRI file from the card: RSTn count and numbering, coefficients
+    equal the kernel's, api.decode on the card gives the CPU decode's pixels
+    (the recon kernel's limit), and the bytes equal the CPU encode's
+    wherever the coefficients agree."""
+    img = _frame(h, w, mode)
+    sub = "420" if mode == "gray" else mode
+    kw = dict(quality=75, subsampling=sub, restart_interval=dri,
+              optimize=optimize)
+    data = api.encode(img, device="cuda", **kw)
+    p = parser.parse_jpeg(data)
+    plan, ops, _ = _plan(h, w, mode, 75, dri)
+    lay = ops[0]
+    assert p.restart_interval == dri
+    assert _rst_markers(p.scan_data) == \
+        [0xD0 + (i & 7) for i in range(lay.n_segments - 1)]
+    x = torch.from_numpy(img)[None].to(cuda)
+    zz = k1_dct.fused_pixels_to_scan(x, *ops)[0, :lay.n_scan]
+    expect = np.empty((lay.n_scan, 64), np.int32)
+    expect[lay.scan_flat] = zz.cpu().numpy()
+    np.testing.assert_array_equal(_decode(data, lay), expect)
+    out = api.decode(data, to_device=True)
+    _pixel_parity(out, torch.from_numpy(api.decode(data, device="cpu")).to(
+        cuda))
+    cpu_plan = engine.get_plan(h, w, mode, 75, "cpu", dri)
+    if torch.equal(cpu_plan.zz_scan(torch.from_numpy(img)[None])[0][0,
+                   :lay.n_scan], zz.cpu()):
+        assert data == api.encode(img, device="cpu", **kw)
+
+
+def test_encode_batch_restart_interval_on_cuda(cuda):
+    frames = np.stack([fixtures.synth_frame(64, 96, seed=s)
+                       for s in (1, 2, 3)])
+    before = (k1a_fused.plain_calls, seg_merge.plain_calls,
+              block_pack.plain_calls, k1_dct.plain_calls)
+    for kw in (dict(restart_interval=4), dict(restart_interval=5,
+                                              optimize=True)):
+        out = mesh.encode_batch(torch.from_numpy(frames).to(cuda), 75,
+                                device="cuda", **kw)
+        assert out == [api.encode(f, 75, device="cuda", **kw) for f in frames]
+    assert (k1a_fused.plain_calls, seg_merge.plain_calls,
+            block_pack.plain_calls, k1_dct.plain_calls) == before
+
+
+@pytest.mark.parametrize("mode", ["420", "422", "444", "gray"])
+@pytest.mark.parametrize("dri,optimize", [(0, False), (3, False), (0, True),
+                                          (5, True)])
+def test_islow_on_cuda_equals_cpu_and_reference(cuda, mode, dri, optimize):
+    """The integer pipeline is exact, so the card's file equals the CPU's
+    and the numpy reference's (ref.islow + ref.encoder) byte for byte."""
+    from jpgenc_tpu_torch.api import EOI, jfif_headers
+    from jpgenc_tpu_torch.ref import islow as ref_islow
+    img = _frame(61, 130, mode)
+    sub = "420" if mode == "gray" else mode
+    kw = dict(quality=75, subsampling=sub, restart_interval=dri,
+              optimize=optimize, dct_method="islow")
+    before = block_pack.launches
+    data = api.encode(img, device="cuda", **kw)
+    assert block_pack.launches > before
+    assert data == api.encode(img, device="cpu", **kw)
+    assert mesh.encode_batch(img[None], device="cuda", **kw) == [data]
+    lay = make_layout(61, 130, mode, dri)
+    qt = list(engine.qtables_for_quality(75))
+    blocks = ref_islow.image_to_zigzag_islow(img, lay, qt)
+    if optimize:
+        n_tabs = 1 if mode == "gray" else 2
+        dc_t, ac_t = engine.tables_from_freq(
+            ref_encoder.symbol_histogram(lay, blocks), n_tabs)
+    else:
+        dc_t, ac_t = ref_encoder.standard_tables()
+    assert data == (jfif_headers(lay, 75, dc_t, ac_t)
+                    + ref_encoder.entropy_scan(lay, blocks, dc_t, ac_t) + EOI)

@@ -202,9 +202,19 @@ def test_wcompact_single_segment_is_a_bswapped_prefix():
             np.testing.assert_array_equal(out[b].numpy().view(np.uint32),
                                           np.asarray(ref))
             np.testing.assert_array_equal(nb[b].numpy(), np.asarray(rnb))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tpack.wcompact_unstuffed(torch.zeros((3, 8), dtype=torch.int32),
-                                 torch.zeros(3, dtype=torch.int32), 16, 8)
+    # three segments: starts aligned to the 8-word chunk, words past each
+    # segment's content zero
+    words3 = rng.integers(0, 2 ** 32, (1, 3, 20), dtype=np.uint64) \
+        .astype(np.uint32)
+    bits3 = np.array([[70, 300, 33]], np.int32)
+    out, nb = tpack.wcompact_unstuffed(
+        torch.from_numpy(words3.view(np.int32)), torch.from_numpy(bits3), 40,
+        8)
+    ref, rnb = jpack.wcompact_unstuffed(jnp.asarray(words3[0]),
+                                        jnp.asarray(bits3[0]), 40, 8)
+    np.testing.assert_array_equal(out[0].numpy().view(np.uint32),
+                                  np.asarray(ref))
+    np.testing.assert_array_equal(nb[0].numpy(), np.asarray(rnb))
 
 
 # --- the copied host modules --------------------------------------------------
@@ -674,3 +684,34 @@ def test_flatten_packed_equals_reference(mode, dri, two_level):
     for a, b in zip(td._flatten_packed([], n64, n64),
                     jd._flatten_packed([], n64, n64)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode,h,w", [("420", 47, 111), ("422", 17, 23),
+                                      ("444", 24, 30), ("gray", 33, 20)])
+def test_ref_islow_equals_reference(mode, h, w):
+    """ref/islow.py is the port's own copy of the numpy integer tier: same
+    constants, same functions, same coefficients from the same pixels."""
+    from jpgenc_tpu.ref import islow as jr
+    from jpgenc_tpu_torch.layout import make_layout as tmake
+    from jpgenc_tpu_torch.ref import islow as tr
+    consts = [n for n in dir(jr) if n.isupper() or n.startswith("_F_")]
+    assert len(consts) >= 15
+    assert consts == [n for n in dir(tr)
+                      if n.isupper() or n.startswith("_F_")]
+    for n in consts:
+        assert getattr(tr, n) == getattr(jr, n), n
+    assert [tr._fix(x) for x in (0.299, 0.5, 0.08131)] == \
+        [jr._fix(x) for x in (0.299, 0.5, 0.08131)]
+    rng = np.random.default_rng(h * w)
+    blocks = rng.integers(-128, 128, (20, 8, 8))
+    np.testing.assert_array_equal(tr.fdct8x8_islow(blocks),
+                                  jr.fdct8x8_islow(blocks))
+    img = rng.integers(0, 256, (h, w) if mode == "gray" else (h, w, 3),
+                       dtype=np.uint8)
+    if mode != "gray":
+        np.testing.assert_array_equal(tr.rgb_to_ycbcr_islow(img),
+                                      jr.rgb_to_ycbcr_islow(img))
+    qt = list(jeng.qtables_for_quality(60)[0])
+    np.testing.assert_array_equal(
+        tr.image_to_zigzag_islow(img, tmake(h, w, mode, 0), qt),
+        jr.image_to_zigzag_islow(img, make_layout(h, w, mode, 0), qt))

@@ -94,6 +94,15 @@ def test_k1_wrapper_takes_plain_version_only_on_cpu():
                        k1_dct.transform_plain(img, *ops))
     with pytest.raises(ValueError, match="unsupported device"):
         k1_dct.fused_pixels_to_scan(img.to("meta"), *ops)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        k1_dct.fused_pixels_to_scan(img, make_layout(16, 16, "420", 2),
-                                    *ops[1:])
+    # a restart interval pads the slots to whole segments with zero blocks:
+    # one MCU of 6 blocks in a segment of 2 MCUs, then 3 MCUs in 2 segments
+    dri = k1_dct.fused_pixels_to_scan(img, make_layout(16, 16, "420", 2),
+                                      *ops[1:])
+    assert tuple(dri.shape) == (1, 12, 64)
+    assert torch.equal(dri[:, :6], zz) and not dri[:, 6:].any()
+    plan3 = engine.get_plan(16, 48, "420", 75, "cpu", 2)
+    img3 = torch.from_numpy(_image(16, 48, "420"))[None]
+    zz3 = k1_dct.fused_pixels_to_scan(img3, plan3.layout, plan3.m, plan3.bias,
+                                      plan3.q)
+    assert tuple(zz3.shape) == (1, 24, 64) and plan3.layout.n_scan == 18
+    assert not zz3[:, 18:].any() and zz3[:, :18].any()

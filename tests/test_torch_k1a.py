@@ -169,6 +169,10 @@ def test_wrapper_takes_plain_version_only_on_cpu():
                        k1a_fused.transform_plain(img, *ops))
     with pytest.raises(ValueError, match="unsupported device"):
         k1a_fused.fused_pixels_to_pack(img.to("meta"), *ops, tabs, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        k1a_fused.fused_pixels_to_pack(img, make_layout(32, 32, "420", 2),
-                                       *ops[1:], tabs, 8)
+    # a restart interval resets the predictor at each segment start: with
+    # DRI 1 every MCU codes its DCs against 0
+    buf_r, bits_r, _ = k1a_fused.fused_pixels_to_pack(
+        img, make_layout(32, 32, "420", 1), *ops[1:], tabs, 8, return_zz=True)
+    assert tuple(bits_r.shape) == tuple(bits.shape)
+    assert torch.equal(bits_r[0, :6], bits[0, :6])       # MCU 0: as without
+    assert not torch.equal(bits_r, bits)
