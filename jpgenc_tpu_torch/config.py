@@ -19,8 +19,8 @@ class EncodeConfig:
     restart_interval: int = 0
     # two-pass encode with custom Huffman tables built from the symbol histogram.
     optimize_huffman: bool = False
-    # 'float': float32 DCT as one dense operator (the throughput path,
-    # default); 'islow': libjpeg-exact integer pipeline — output files are
+    # 'float': float32 DCT, one 64x64 product per block (the throughput
+    # path, default); 'islow': libjpeg-exact integer pipeline — output files are
     # byte-identical to libjpeg-turbo's at matched settings (the
     # conformance mode: torch int32 ops feeding kernel A).
     dct_method: str = "float"

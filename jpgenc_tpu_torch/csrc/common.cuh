@@ -4,16 +4,30 @@
 // Two halves, each used by a fused kernel and by its split counterpart, so
 // that both hold the same values bit for bit:
 //
-//  * the transform: tile_arithmetic behind one of two loaders (colour, the
-//    dense operator over an MCU's raw RGB bytes; tile_transform is the row
-//    kernels' pair) and gray_tile_transform ((x - 128) @ KDCT_ZZ). An image
-//    can be coded by K1A (no optimize) and by K1 + kernel A (optimize), and
-//    the capacity ladder may switch between them, so the per-coefficient
-//    float sequence is ONE function: sums in k order with explicit
-//    __fmaf_rn, then (+ bias), / q (a true division, never a reciprocal:
-//    jpgenc_tpu/ops/pallas/k1_dct.py:72-74) and round half away, all with
-//    _rn intrinsics so no contraction choice can differ between call sites.
+//  * the transform. Colour: one per-block formulation for K1A, K1 rows and
+//    the K1 repack kernel, in place of the dense [768, 384] operator that
+//    jpgenc_tpu/ops/pallas/k1_dct.py (_dense_operator, _dense_dma_kernel,
+//    _dense_kernel) and k1a_fused.py (_k1a_kernel) build for a matrix unit:
+//    BT.601 per pixel, box-mean subsample, level shift, then every 8x8 block
+//    times KDCT_ZZ [64, 64], divide, round half away. 24 576 FMAs per 4:2:0
+//    MCU instead of the dense operator's 294 912, and the one operand is
+//    16 KB, so it lives in shared memory. Gray: gray_tile_transform, the
+//    same block product on (x - 128). An image can be coded by K1A (no
+//    optimize) and by K1 + kernel A (optimize), and the capacity ladder may
+//    switch between them, so the per-coefficient float sequence is ONE
+//    function (convert_* then tile_product): every product and sum is an
+//    explicit _rn intrinsic, so no contraction choice can differ between
+//    call sites; the division is a true division, never a reciprocal
+//    (jpgenc_tpu/ops/pallas/k1_dct.py:72-74).
 //  * the entropy coder: code_block, one warp per 8x8 block (T.81 F.1.2).
+//
+// What bounds the colour transform on the H100 now: instruction throughput,
+// not device memory. K1 rows takes 0.28 ms for 16 x 1080p 4:2:0 (H100 at
+// 700 W) against 0.096 ms for the products' own FMAs at the float32 peak and
+// a bytes bound of 0.06 ms: the rest is the products' shared-memory loads
+// (about 11 FMAs per 16-byte load), the quantizer's true divisions (one per
+// 64 FMAs, some ten instructions each) and the loaders' byte-to-float
+// conversion. PERF.md section 6 holds the measured times beside the bounds.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,116 +64,402 @@ __device__ __forceinline__ int round_div(float x, float q) {
   return static_cast<int>(truncf(__fadd_rn(y, copysignf(0.5f, y))));
 }
 
-__device__ __forceinline__ int quantize(float acc, float bias, float q) {
-  return round_div(__fadd_rn(acc, bias), q);
-}
-
-// Colour, in two parts so that every colour kernel of the dense operator
-// shares ONE arithmetic: a loader that fills xs [SLOTS][K] with the MCUs'
-// pixel bytes as floats in natural order (pixel row, pixel, channel), and
-// tile_arithmetic. L = (HS*VS + 2) * 64 threads, one per output coefficient.
+// Colour. A thread block of (nb+2)*64 threads takes a tile of T = kTileMcus
+// = 4*kBpt MCUs and works in three steps on two shared arrays, ks [64][64]
+// (KDCT_ZZ, pixel -> zigzag coefficient) and xs [T (+1)][STRIDE] (the
+// samples):
 //
-// Loader 1, from the image: SLOTS consecutive MCUs (raster order) of one
-// image, starting at MCU first_g (which may be -1: the slot is then zero),
-// read as strided 3*8*HS-byte row pieces with row and column clamped to H-1 /
-// W-1: that clamp is the replicate pad.
-template <int HS, int VS, int SLOTS>
+//  1. A loader fills xs: per MCU its nb+2 blocks of 64 level-shifted float
+//     samples in scan order (Y blocks row-major, Cb, Cr), block-major, each
+//     MCU's slot padded by 4 floats. The loaders work in units of 48 raw
+//     bytes (16 pixels) by VS rows, one thread per unit, converted in
+//     registers as the bytes arrive: the thread writes its luma samples and
+//     the box means of its HS x VS quads, so full-resolution chroma is never
+//     staged. The pad makes the 16-byte stores of eight neighbouring units
+//     (eight neighbouring MCUs where HS = 2) fall into eight different bank
+//     groups. Three loaders: load_tile_image (rows of the image, 16-byte,
+//     4-byte or clamped single-byte loads by the alignment of the row pitch
+//     and the unit's position; the clamp is the replicate pad),
+//     load_mcu_image (one MCU, K1A's predecessor) and load_tile_packed (the
+//     MCU-contiguous repack).
+//  2. tile_product: thread (bg, cg) = (tid >> 4, tid & 15) owns coefficients
+//     4*cg..4*cg+3 of the kBpt blocks bg, bg + 4*(nb+2), ...: the same block
+//     of MCUs m, m + 4, ... It reads four ks rows and each block's four
+//     samples as 16-byte vectors per four k: 4 + kBpt loads for 16 * kBpt
+//     FMAs. The 16 threads of a half-warp read one sample address (a
+//     broadcast) and 16 consecutive ks vectors, so neither operand has a bank
+//     conflict. Every accumulator is one __fmaf_rn chain from 0 with k
+//     ascending: the chain of gray_tile_transform and of dc_of_block.
+//  3. The quantized values replace xs as int16 zq [T][(nb+2)*64]: the MCUs'
+//     coefficients in scan order, which is the layout of the output.
+//
+// Blocks per thread of the block product, kBpt, sets the tile for K1A, K1
+// rows and the K1 repack kernel alike. It is a compile-time constant
+// (-DJPGENC_BPT=n rebuilds the three kernels with another; kernels/
+// tile_sweep.py does so for 4, 6, 8 and 10 and times them).
+#ifndef JPGENC_BPT
+#define JPGENC_BPT 10
+#endif
+constexpr int kBpt = JPGENC_BPT;
+constexpr int kTileMcus = 4 * kBpt;
+
+template <int HS, int VS>
+struct Geo {
+  static constexpr int NB = HS * VS;             // luma blocks per MCU
+  static constexpr int NB2 = NB + 2;             // blocks per MCU
+  static constexpr int L = NB2 * 64;             // coefficients = threads
+  static constexpr int STRIDE = L + 4;           // floats per MCU slot of xs
+  static constexpr int K = 8 * VS * 3 * 8 * HS;  // raw bytes per MCU
+};
+
+// Step 1 of the formulation, per pixel, in the order of
+// jpgenc_tpu/ops/color.py:15-23: every product and sum rounded on its own,
+// left to right.
+__device__ __forceinline__ float luma_of(float r, float g, float b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.299f, r), __fmul_rn(0.587f, g)),
+                   __fmul_rn(0.114f, b));
+}
+
+__device__ __forceinline__ float cb_of(float r, float g, float b) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(-0.168735892f, r),
+                                       __fmul_rn(-0.331264108f, g)),
+                             __fmul_rn(0.5f, b)), 128.0f);
+}
+
+__device__ __forceinline__ float cr_of(float r, float g, float b) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(0.5f, r),
+                                       __fmul_rn(-0.418687589f, g)),
+                             __fmul_rn(-0.081312411f, b)), 128.0f);
+}
+
+// Byte b of 48 raw bytes held as 12 little-endian words.
+__device__ __forceinline__ float byte_of(const uint32_t (&w)[12], int b) {
+  return static_cast<float>((w[b >> 2] >> ((b & 3) * 8)) & 255u);
+}
+
+__device__ __forceinline__ void store8(float* d, const float* v) {
+  reinterpret_cast<float4*>(d)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(d)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// One unit where HS = 2: w[i] holds the 16 pixels of luma row VS*rp + i of
+// one MCU, whose sample slot is `slot`. Writes the rows' luma samples into
+// their two blocks and row rp of Cb and Cr. Steps 2 and 3: the HS x VS box
+// is summed in row-major order, scaled by the exact 1 / (HS*VS), and 128 is
+// subtracted from every sample.
+template <int VS>
+__device__ __forceinline__ void convert_h2(const uint32_t (&w)[VS][12],
+                                           float* slot, int rp) {
+  constexpr int NB = 2 * VS;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {        // 8 pixels: luma block column h
+    float cb[4], cr[4];
+#pragma unroll
+    for (int i = 0; i < VS; ++i) {
+      float y[8];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int o = 3 * (8 * h + p);
+        const float r = byte_of(w[i], o), g = byte_of(w[i], o + 1),
+                    b = byte_of(w[i], o + 2);
+        y[p] = __fsub_rn(luma_of(r, g, b), 128.0f);
+        if (i == 0 && (p & 1) == 0) {
+          cb[p >> 1] = cb_of(r, g, b);
+          cr[p >> 1] = cr_of(r, g, b);
+        } else {
+          cb[p >> 1] = __fadd_rn(cb[p >> 1], cb_of(r, g, b));
+          cr[p >> 1] = __fadd_rn(cr[p >> 1], cr_of(r, g, b));
+        }
+      }
+      const int row = VS * rp + i;
+      store8(slot + ((row >> 3) * 2 + h) * 64 + (row & 7) * 8, y);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cb[j] = __fsub_rn(__fmul_rn(cb[j], 1.0f / NB), 128.0f);
+      cr[j] = __fsub_rn(__fmul_rn(cr[j], 1.0f / NB), 128.0f);
+    }
+    float* c = slot + NB * 64 + rp * 8 + 4 * h;
+    *reinterpret_cast<float4*>(c) = make_float4(cb[0], cb[1], cb[2], cb[3]);
+    *reinterpret_cast<float4*>(c + 64) =
+        make_float4(cr[0], cr[1], cr[2], cr[3]);
+  }
+}
+
+// One unit where HS = VS = 1: w holds two runs of 8 pixels; run j is row
+// row_j of the MCU whose sample slot is slot_j (Y, Cb, Cr blocks).
+__device__ __forceinline__ void convert_h1(const uint32_t (&w)[12],
+                                           float* slot0, int row0,
+                                           float* slot1, int row1) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float y[8], cb[8], cr[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int o = 3 * (8 * j + p);
+      const float r = byte_of(w, o), g = byte_of(w, o + 1),
+                  b = byte_of(w, o + 2);
+      y[p] = __fsub_rn(luma_of(r, g, b), 128.0f);
+      cb[p] = __fsub_rn(cb_of(r, g, b), 128.0f);
+      cr[p] = __fsub_rn(cr_of(r, g, b), 128.0f);
+    }
+    float* d = (j ? slot1 : slot0) + (j ? row1 : row0) * 8;
+    store8(d, y);
+    store8(d + 64, cb);
+    store8(d + 128, cr);
+  }
+}
+
+// 48 bytes at p as 12 words: VEC = 16 (p 16-byte aligned) or 4.
+template <int VEC>
+__device__ __forceinline__ void gather_vec(const uint8_t* __restrict__ p,
+                                           uint32_t (&w)[12]) {
+  if constexpr (VEC == 16) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const uint4 v = __ldg(q + i);
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) w[i] = __ldg(q + i);
+  }
+}
+
+// 8 pixels of image row y from pixel x as words w[OFF..OFF+5], one byte at
+// a time, row and column clamped to H-1 / W-1: the replicate pad.
+template <int OFF>
+__device__ __forceinline__ void gather_clamped(const uint8_t* __restrict__ im,
+                                               int H, int W, int y, int x,
+                                               uint32_t (&w)[12]) {
+  const uint8_t* row = im + static_cast<size_t>(min(y, H - 1)) * W * 3;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) w[OFF + i] = 0u;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const uint8_t* px = row + static_cast<size_t>(min(x + p, W - 1)) * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int b = 3 * p + c;
+      w[OFF + (b >> 2)] |= static_cast<uint32_t>(__ldg(px + c))
+                           << ((b & 3) * 8);
+    }
+  }
+}
+
+// 16 pixels of image row y from pixel x: a vector load where the unit lies
+// inside the image and vec (16, 4 or 1: what the image's base and row pitch
+// are aligned to) allows one, the clamped path otherwise.
+__device__ __forceinline__ void gather_row(const uint8_t* __restrict__ im,
+                                           int H, int W, int vec, bool inside,
+                                           int y, int x, uint32_t (&w)[12]) {
+  if (inside && vec > 1) {
+    const uint8_t* p = im + (static_cast<size_t>(y) * W + x) * 3;
+    if (vec == 16) gather_vec<16>(p, w);
+    else gather_vec<4>(p, w);
+  } else {
+    gather_clamped<0>(im, H, W, y, x, w);
+    gather_clamped<6>(im, H, W, y, x + 8, w);
+  }
+}
+
+// Loader 1, from the image: the T = kTileMcus MCUs mx0 .. mx0+T-1 of MCU row
+// my_i (those past mx-1 are skipped: their slots hold garbage that no one
+// stores). Neighbouring threads take neighbouring units of one pixel row.
+template <int HS, int VS>
 __device__ __forceinline__ void load_tile_image(
-    const uint8_t* __restrict__ im, int H, int W, int mx, int n_mcus,
-    int first_g, float* xs, int tid) {
-  constexpr int L = (HS * VS + 2) * 64;
-  constexpr int MH = 8 * VS, ROW = 3 * 8 * HS;   // MCU rows, bytes per row
-  constexpr int K = MH * ROW;                    // input bytes per MCU
-  for (int i = tid; i < SLOTS * K; i += L) {
-    const int s = i / K, e = i - s * K;
-    const int g = first_g + s;
-    float val = 0.f;
-    if (g >= 0 && g < n_mcus) {
-      const int my_i = g / mx, mx_i = g - my_i * mx;
-      const int r = e / ROW, b = e - r * ROW;
-      const int px = b / 3, c = b - px * 3;
-      const int y = min(my_i * MH + r, H - 1);
-      const int x = min(mx_i * 8 * HS + px, W - 1);
-      val = static_cast<float>(im[(static_cast<size_t>(y) * W + x) * 3 + c]);
+    const uint8_t* __restrict__ im, int H, int W, int vec, int mx, int my_i,
+    int mx0, float* xs, int tid) {
+  using G = Geo<HS, VS>;
+  constexpr int T = kTileMcus;
+  constexpr int COLS = T * HS / 2;               // units per pixel row
+  for (int u = tid; u < COLS * 8; u += G::L) {
+    const int cu = u % COLS, rp = u / COLS;      // rp: 0..7
+    const int m = mx0 + cu * (2 / HS);           // the unit's (first) MCU
+    if (m >= mx) continue;
+    const int x = m * 8 * HS, y = (my_i * 8 + rp) * VS;
+    const bool inside = x + 16 <= W && y + VS <= H;
+    float* slot = xs + cu * (2 / HS) * G::STRIDE;
+    if constexpr (HS == 2) {
+      uint32_t w[VS][12];
+#pragma unroll
+      for (int i = 0; i < VS; ++i)
+        gather_row(im, H, W, vec, inside, y + i, x, w[i]);
+      convert_h2<VS>(w, slot, rp);
+    } else {
+      uint32_t w[12];
+      gather_row(im, H, W, vec, inside, y, x, w);
+      convert_h1(w, slot, rp, slot + G::STRIDE, rp);
     }
-    xs[i] = val;
   }
 }
 
-// Loader 2, from the MCU-contiguous repack (k1_dct.mcu_bytes: each MCU's K
-// padded bytes back to back, already in natural order): n_valid <= SLOTS
-// MCUs starting at src, read as 16-byte vectors (K is a multiple of 16 and
-// src is 16-byte aligned, so a vector never straddles two MCUs); the slots
-// past n_valid are zero.
-template <int K, int SLOTS>
+// Loader 2, one MCU (mx_i, my_i) of the image into `slot`: K1A's predecessor.
+// The calling thread takes unit j of the MCU's 8 (HS = 2) or 4; a thread with
+// another j does nothing.
+template <int HS, int VS>
+__device__ __forceinline__ void load_mcu_image(
+    const uint8_t* __restrict__ im, int H, int W, int vec, int mx_i, int my_i,
+    float* slot, int j) {
+  const int x = mx_i * 8 * HS;
+  if constexpr (HS == 2) {
+    if (j >= 8) return;
+    const int y = (my_i * 8 + j) * VS;
+    const bool inside = x + 16 <= W && y + VS <= H;
+    uint32_t w[VS][12];
+#pragma unroll
+    for (int i = 0; i < VS; ++i)
+      gather_row(im, H, W, vec, inside, y + i, x, w[i]);
+    convert_h2<VS>(w, slot, j);
+  } else {
+    if (j >= 4) return;
+    uint32_t w[12];
+    gather_clamped<0>(im, H, W, my_i * 8 + 2 * j, x, w);
+    gather_clamped<6>(im, H, W, my_i * 8 + 2 * j + 1, x, w);
+    convert_h1(w, slot, 2 * j, slot, 2 * j + 1);
+  }
+}
+
+// Loader 3, from the MCU-contiguous repack (k1_dct.mcu_bytes: each MCU's K
+// padded bytes back to back in memory order: pixel row, pixel, channel):
+// n_valid <= T MCUs starting at src, which is 16-byte aligned as K is a
+// multiple of 16. Neighbouring threads read neighbouring 48*VS bytes.
+template <int HS, int VS>
 __device__ __forceinline__ void load_tile_packed(
-    const uint8_t* __restrict__ src, int n_valid, float* xs, int tid,
-    int n_threads) {
-  static_assert(K % 16 == 0, "an MCU is a whole number of 16-byte vectors");
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  for (int i = tid; i < SLOTS * K / 16; i += n_threads) {
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (i * 16 < n_valid * K) v = __ldg(s4 + i);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    float4* d = reinterpret_cast<float4*>(xs + i * 16);
+    const uint8_t* __restrict__ src, int n_valid, float* xs, int tid) {
+  using G = Geo<HS, VS>;
+  constexpr int T = kTileMcus;
+  constexpr int PER = HS == 2 ? 8 : 4;           // units per MCU
+  for (int u = tid; u < T * PER; u += G::L) {
+    const int s = u / PER, j = u - s * PER;
+    if (s >= n_valid) break;
+    float* slot = xs + s * G::STRIDE;
+    const uint8_t* p = src + static_cast<size_t>(s) * G::K + j * 48 * VS;
+    if constexpr (HS == 2) {
+      uint32_t w[VS][12];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      d[j] = make_float4(static_cast<float>(w[j] & 255u),
-                         static_cast<float>((w[j] >> 8) & 255u),
-                         static_cast<float>((w[j] >> 16) & 255u),
-                         static_cast<float>(w[j] >> 24));
+      for (int i = 0; i < VS; ++i) gather_vec<16>(p + 48 * i, w[i]);
+      convert_h2<VS>(w, slot, j);
+    } else {
+      uint32_t w[12];
+      gather_vec<16>(p, w);
+      convert_h1(w, slot, 2 * j, slot, 2 * j + 1);
+    }
   }
 }
 
-// The arithmetic, on xs as a loader left it (it synchronises first):
-//  1. Thread tid computes coefficient tid of every slot as a dot product with
-//     column tid of the dense operator m [K, L] (k1_dct._dense_operator
-//     'natural'), read through L1/L2.
-//  2. The quantized values replace xs as int zq [SLOTS][L] (returned).
-// Every thread of the block must call it; it synchronises the block.
-template <int HS, int VS, int SLOTS>
-__device__ __forceinline__ int* tile_arithmetic(
-    const float* __restrict__ m, const float* __restrict__ bias,
-    const float* __restrict__ q, float* xs, int tid) {
-  constexpr int L = (HS * VS + 2) * 64;
-  constexpr int K = 8 * VS * 3 * 8 * HS;         // input bytes per MCU
-  static_assert(L <= K, "coefficients reuse the pixel scratch");
-  __syncthreads();                               // xs is loaded
+// Host side: what the launchers check and choose.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
-  float acc[SLOTS];
+// The widest load (16, 4 or 1 bytes) that every row of every image of a
+// contiguous [B, H, W, 3] u8 batch at img is aligned to.
+inline int load_alignment(const void* img, int W) {
+  const uintptr_t a =
+      reinterpret_cast<uintptr_t>(img) | static_cast<uintptr_t>(3) * W;
+  return a % 16 == 0 ? 16 : a % 4 == 0 ? 4 : 1;
+}
+
+// KDCT_ZZ [64][64] into ks, 16 bytes a thread; kdct is 16-byte aligned.
+__device__ __forceinline__ void load_operator(const float* __restrict__ kdct,
+                                              float* ks, int tid,
+                                              int n_threads) {
+  const float4* s = reinterpret_cast<const float4*>(kdct);
+  float4* d = reinterpret_cast<float4*>(ks);
+  for (int i = tid; i < 64 * 64 / 4; i += n_threads) d[i] = __ldg(s + i);
+}
+
+// Coefficient 0 of one block of samples x [64], quantized by q0: the chain
+// tile_product runs for every coefficient, so the value is the owner's bit
+// for bit.
+__device__ __forceinline__ int dc_of_block(const float* x, const float* ks,
+                                           float q0) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < 64; ++k) acc = __fmaf_rn(x[k], ks[k * 64], acc);
+  return round_div(acc, q0);
+}
+
+// Steps 4 and 5 on xs and ks as the loaders left them (the caller has
+// synchronised): the block products, then quantized int16 zq [T][L] in
+// place of xs (returned). q [L] f32, 16-byte aligned: the quantizer of every
+// coefficient of an MCU. Every thread of the block must call it; it
+// synchronises the block before it overwrites xs and before it returns.
+template <int HS, int VS>
+__device__ __forceinline__ int16_t* tile_product(float* xs, const float* ks,
+                                                 const float* __restrict__ q,
+                                                 int tid) {
+  using G = Geo<HS, VS>;
+  const int cg = tid & 15, bg = tid >> 4;
+  const int m0 = bg / G::NB2, blk = bg - m0 * G::NB2;
+  const float* xb = xs + m0 * G::STRIDE + blk * 64;
+  const float* kb = ks + 4 * cg;
+
+  float acc[kBpt][4];
 #pragma unroll
-  for (int s = 0; s < SLOTS; ++s) acc[s] = 0.f;
-  for (int k = 0; k < K; k += 4) {
-    const float m0 = __ldg(m + (k + 0) * L + tid);
-    const float m1 = __ldg(m + (k + 1) * L + tid);
-    const float m2 = __ldg(m + (k + 2) * L + tid);
-    const float m3 = __ldg(m + (k + 3) * L + tid);
+  for (int j = 0; j < kBpt; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // not unrolled: a second iteration's operands in flight would not fit
+  // beside 40 accumulators in 80 registers, and it measured no faster
+#pragma unroll 1
+  for (int k = 0; k < 64; k += 4) {
+    const float4 k0 = *reinterpret_cast<const float4*>(kb + (k + 0) * 64);
+    const float4 k1 = *reinterpret_cast<const float4*>(kb + (k + 1) * 64);
+    const float4 k2 = *reinterpret_cast<const float4*>(kb + (k + 2) * 64);
+    const float4 k3 = *reinterpret_cast<const float4*>(kb + (k + 3) * 64);
 #pragma unroll
-    for (int s = 0; s < SLOTS; ++s) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[s * K + k]);
-      acc[s] = __fmaf_rn(xv.x, m0, acc[s]);
-      acc[s] = __fmaf_rn(xv.y, m1, acc[s]);
-      acc[s] = __fmaf_rn(xv.z, m2, acc[s]);
-      acc[s] = __fmaf_rn(xv.w, m3, acc[s]);
+    for (int j = 0; j < kBpt; ++j) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(xb + j * 4 * G::STRIDE + k);
+      acc[j][0] = __fmaf_rn(x.x, k0.x, acc[j][0]);
+      acc[j][1] = __fmaf_rn(x.x, k0.y, acc[j][1]);
+      acc[j][2] = __fmaf_rn(x.x, k0.z, acc[j][2]);
+      acc[j][3] = __fmaf_rn(x.x, k0.w, acc[j][3]);
+      acc[j][0] = __fmaf_rn(x.y, k1.x, acc[j][0]);
+      acc[j][1] = __fmaf_rn(x.y, k1.y, acc[j][1]);
+      acc[j][2] = __fmaf_rn(x.y, k1.z, acc[j][2]);
+      acc[j][3] = __fmaf_rn(x.y, k1.w, acc[j][3]);
+      acc[j][0] = __fmaf_rn(x.z, k2.x, acc[j][0]);
+      acc[j][1] = __fmaf_rn(x.z, k2.y, acc[j][1]);
+      acc[j][2] = __fmaf_rn(x.z, k2.z, acc[j][2]);
+      acc[j][3] = __fmaf_rn(x.z, k2.w, acc[j][3]);
+      acc[j][0] = __fmaf_rn(x.w, k3.x, acc[j][0]);
+      acc[j][1] = __fmaf_rn(x.w, k3.y, acc[j][1]);
+      acc[j][2] = __fmaf_rn(x.w, k3.z, acc[j][2]);
+      acc[j][3] = __fmaf_rn(x.w, k3.w, acc[j][3]);
     }
   }
-  const float bc = bias[tid], qc = q[tid];
+  const float4 qv = __ldg(reinterpret_cast<const float4*>(q + blk * 64) + cg);
   __syncthreads();                               // xs becomes zq below
-  int* zq = reinterpret_cast<int*>(xs);          // [SLOTS][L] quantized
+  int16_t* zq = reinterpret_cast<int16_t*>(xs);
 #pragma unroll
-  for (int s = 0; s < SLOTS; ++s) zq[s * L + tid] = quantize(acc[s], bc, qc);
+  for (int j = 0; j < kBpt; ++j) {
+    const uint32_t v0 = static_cast<uint32_t>(round_div(acc[j][0], qv.x));
+    const uint32_t v1 = static_cast<uint32_t>(round_div(acc[j][1], qv.y));
+    const uint32_t v2 = static_cast<uint32_t>(round_div(acc[j][2], qv.z));
+    const uint32_t v3 = static_cast<uint32_t>(round_div(acc[j][3], qv.w));
+    *reinterpret_cast<uint2*>(zq + ((m0 + 4 * j) * G::NB2 + blk) * 64 +
+                              4 * cg) =
+        make_uint2((v0 & 0xffffu) | (v1 << 16), (v2 & 0xffffu) | (v3 << 16));
+  }
   __syncthreads();
   return zq;
 }
 
-// The row kernels' transform (K1A, K1): loader 1 + the arithmetic.
-template <int HS, int VS, int SLOTS>
-__device__ __forceinline__ int* tile_transform(
-    const uint8_t* __restrict__ im, int H, int W, int mx, int n_mcus,
-    int first_g, const float* __restrict__ m, const float* __restrict__ bias,
-    const float* __restrict__ q, float* xs, int tid) {
-  load_tile_image<HS, VS, SLOTS>(im, H, W, mx, n_mcus, first_g, xs, tid);
-  return tile_arithmetic<HS, VS, SLOTS>(m, bias, q, xs, tid);
+// n int16 values of zq (16-byte aligned, n a multiple of 8) to dst (16-byte
+// aligned), 16 bytes a thread.
+__device__ __forceinline__ void copy_zz(const int16_t* zq, int n,
+                                        int16_t* __restrict__ dst, int tid,
+                                        int n_threads) {
+  const uint4* s = reinterpret_cast<const uint4*>(zq);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = tid; i < n / 8; i += n_threads) d[i] = s[i];
 }
 
 // Gray. SLOTS consecutive 8x8 blocks (raster order over the block grid, mx

@@ -4,96 +4,114 @@
 // Four kernels, one per Pallas kernel of jpgenc_tpu/ops/pallas/k1_dct.py. The
 // Python wrapper and the plain versions are in ops/cuda/k1_dct.py.
 //
-//  * k1_kernel replaces ::_dense_dma_kernel: the dense operator over MCUs read
-//    from the image in its natural layout, tiles of kTile MCUs of one image.
-//  * k1_repack_kernel replaces ::_dense_kernel: the same operator over the
-//    MCU-contiguous repack (mcu_pack_words; here k1_dct.mcu_bytes, whose bytes
-//    in memory order are the operator's 'natural' basis), in flat tiles of
-//    kTile MCUs that ignore image rows and images. The reference takes it for
-//    frames whose MCU row is past its row kernel's VMEM budget; on this card
-//    nothing forces the choice. Each MCU is 3*mh*mw contiguous bytes, loaded
-//    as 16-byte vectors.
+//  * k1_kernel replaces ::_dense_dma_kernel: MCUs read from the image in its
+//    natural layout, tiles of kTileMcus MCUs inside one MCU row of one image
+//    (grid: tiles per row, MCU rows, images), so each pixel row of a tile is
+//    one contiguous stretch of bytes.
+//  * k1_repack_kernel replaces ::_dense_kernel: the same transform over the
+//    MCU-contiguous repack (mcu_pack_words; here k1_dct.mcu_bytes, each MCU's
+//    bytes in memory order), in flat tiles of MCUs that ignore image rows and
+//    images. The reference takes it for frames whose MCU row is past its row
+//    kernel's VMEM budget; on this card nothing forces the choice. Each MCU
+//    is 3*mh*mw contiguous bytes, loaded as 16-byte vectors.
 //  * k1_color_kernel replaces ::_color_kernel: the separable formulation.
 //    BT.601 per pixel (level shift folded in), then per luma block one 64x64
 //    product with KDCT_ZZ (the block-diagonal bd_y without its zeros) and per
 //    chroma plane one [nb*64] x [nb*64, 64] product with sc = S_sub @ KDCT_ZZ
 //    (box-mean subsampling folded in): (nb*64 + 2*nb*64) * 64 FMAs per MCU,
-//    49 152 in 4:2:0 against the dense operator's 294 912.
+//    49 152 in 4:2:0.
 //  * k1_gray_kernel replaces ::_gray_kernel.
 //
-// The dense kernels are the transform halves of the fused kernels
-// (k1a_fused.cu, k1a_gray.cu) with an int16 store: the arithmetic is
-// common.cuh's tile_arithmetic / gray_tile_transform, the same function the
-// fused kernels call, because an image can be coded by either path and both
-// must hold the same coefficients bit for bit (k1a_fused.py:29, :368-373).
-// The two dense kernels differ in their loader only. The separable kernel
-// rounds differently (its sums associate differently), so it agrees with the
-// dense ones except at knife edges (k1_dct.py:18-24); one process uses one
-// formulation for all its files (the module switch K1_DENSE). K1 has no DPCM,
-// so no predecessor is recomputed: every slot of a tile is stored.
+// The TPU's two dense kernels multiply an MCU's bytes by one [768, 384]
+// operator on the matrix unit. k1_kernel and k1_repack_kernel instead run
+// common.cuh's per-block formulation (BT.601 -> box subsample -> each 8x8
+// block times KDCT_ZZ in shared memory, 24 576 FMAs per 4:2:0 MCU): they are
+// the transform half of K1A (k1a_fused.cu) with an int16 store and call the
+// same device functions, because an image can be coded by either path and
+// both must hold the same coefficients bit for bit (k1a_fused.py:29,
+// :368-373). The two differ in their loader only. The separable kernel
+// rounds differently (it subsamples after the products, so its sums
+// associate differently) and agrees with them except at knife edges
+// (k1_dct.py:18-24); one process uses one formulation for all its files (the
+// module switch K1_DENSE). K1 has no DPCM, so no predecessor is loaded.
 //
 // [n_mcu, (nb+2)*64] IS the interleaved scan order (T.81 A.2.3), so the
-// output needs no gather; thread tid stores coefficient tid of each MCU, a
-// coalesced 2-byte store. Each image owns n_slots >= n_mcu * (nb+2) output
-// blocks (whole restart segments); the wrapper zeroes the pad blocks.
+// output needs no gather: a tile's coefficients leave shared memory as one
+// contiguous run of 16-byte stores. Each image owns n_slots >= n_mcu * (nb+2)
+// output blocks (whole restart segments); the wrapper zeroes the pad blocks.
 //
-// What bounds them on the H100: the dense kernels, as K1A, the operator's
-// 384*768 FMAs per 4:2:0 MCU on the CUDA cores; the separable kernel, its
-// chroma threads (nb*64 FMAs each against 64 for a luma thread, two shared
-// loads or one L1 load per FMA) and the 3-byte pixel reads; gray, device
-// memory (1 byte in, 2 bytes out per pixel).
+// What bounds them on the H100: k1_kernel and k1_repack_kernel, the block
+// product's shared-memory loads and FMAs and the quantizer's true divisions
+// (the measured times beside the bytes bound are in PERF.md section 6); the
+// repack wrapper, its torch prologue; the separable kernel, its chroma
+// threads (nb*64 FMAs each against 64 for a luma thread, two shared loads or
+// one L1 load per FMA) and the 3-byte pixel reads; gray, device memory
+// (1 byte in, 2 bytes out per pixel).
 #include "common.cuh"
 
 namespace {
 
 using namespace jpgenc;
 
-constexpr int kTile = 8;           // MCUs per thread block (colour)
+constexpr int kTile = 8;           // MCUs per thread block (separable)
 constexpr int kGrayTile = 32;      // 8x8 blocks per thread block (gray)
 
 template <int HS, int VS>
-__global__ void __launch_bounds__((HS * VS + 2) * 64)
-k1_kernel(const uint8_t* __restrict__ img, int H, int W, int mx, int n_mcus,
-          int n_slots, const float* __restrict__ m,
-          const float* __restrict__ bias, const float* __restrict__ q,
-          int16_t* __restrict__ zz_out) {
-  constexpr int L = (HS * VS + 2) * 64;
-  constexpr int K = 8 * VS * 3 * 8 * HS;
-  __shared__ __align__(16) float xs[kTile * K];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int g0 = blockIdx.x * kTile;
-  const uint8_t* im = img + static_cast<size_t>(n) * H * W * 3;
-  const int* zq = tile_transform<HS, VS, kTile>(im, H, W, mx, n_mcus, g0, m,
-                                                bias, q, xs, tid);
-  int16_t* out = zz_out + static_cast<size_t>(n) * n_slots * 64;
-  for (int s = 0; s < kTile && g0 + s < n_mcus; ++s)
-    out[static_cast<size_t>(g0 + s) * L + tid] =
-        static_cast<int16_t>(zq[s * L + tid]);
+constexpr size_t smem_bytes() {                  // ks, then xs
+  return 4 * (64 * 64 + kTileMcus * Geo<HS, VS>::STRIDE);
 }
 
 template <int HS, int VS>
-__global__ void __launch_bounds__((HS * VS + 2) * 64)
-k1_repack_kernel(const uint8_t* __restrict__ mcus, long long total,
-                 int n_mcus, int n_slots, const float* __restrict__ m,
-                 const float* __restrict__ bias, const float* __restrict__ q,
-                 int16_t* __restrict__ zz_out) {
-  constexpr int L = (HS * VS + 2) * 64;
-  constexpr int K = 8 * VS * 3 * 8 * HS;
-  __shared__ __align__(16) float xs[kTile * K];
+__global__ void __launch_bounds__((HS * VS + 2) * 64, 2)
+k1_kernel(const uint8_t* __restrict__ img, int H, int W, int vec, int mx,
+          int n_slots, const float* __restrict__ kdct,
+          const float* __restrict__ q, int16_t* __restrict__ zz_out) {
+  using G = Geo<HS, VS>;
+  constexpr int T = kTileMcus;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* xs = ks + 64 * 64;
 
   const int tid = threadIdx.x;
-  const long long t0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int mx0 = blockIdx.x * T, my_i = blockIdx.y, n = blockIdx.z;
+  const uint8_t* im = img + static_cast<size_t>(n) * H * W * 3;
+  load_operator(kdct, ks, tid, G::L);
+  load_tile_image<HS, VS>(im, H, W, vec, mx, my_i, mx0, xs, tid);
+  __syncthreads();
+  const int16_t* zq = tile_product<HS, VS>(xs, ks, q, tid);
+  copy_zz(zq, min(T, mx - mx0) * G::L,
+          zz_out + static_cast<size_t>(n) * n_slots * 64 +
+              static_cast<size_t>(my_i * mx + mx0) * G::L,
+          tid, G::L);
+}
+
+template <int HS, int VS>
+__global__ void __launch_bounds__((HS * VS + 2) * 64, 2)
+k1_repack_kernel(const uint8_t* __restrict__ mcus, long long total,
+                 int n_mcus, int n_slots, const float* __restrict__ kdct,
+                 const float* __restrict__ q, int16_t* __restrict__ zz_out) {
+  using G = Geo<HS, VS>;
+  constexpr int T = kTileMcus;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* xs = ks + 64 * 64;
+
+  const int tid = threadIdx.x;
+  const long long t0 = static_cast<long long>(blockIdx.x) * T;
   const long long left = total - t0;
-  const int n_valid = left < kTile ? static_cast<int>(left) : kTile;
-  load_tile_packed<K, kTile>(mcus + t0 * K, n_valid, xs, tid, L);
-  const int* zq = tile_arithmetic<HS, VS, kTile>(m, bias, q, xs, tid);
-  for (int s = 0; s < n_valid; ++s) {
+  const int n_valid = left < T ? static_cast<int>(left) : T;
+  load_operator(kdct, ks, tid, G::L);
+  load_tile_packed<HS, VS>(mcus + t0 * G::K, n_valid, xs, tid);
+  __syncthreads();
+  const int16_t* zq = tile_product<HS, VS>(xs, ks, q, tid);
+  // a tile may straddle two images: each MCU finds its own place
+  const uint4* src = reinterpret_cast<const uint4*>(zq);
+  for (int i = tid; i < n_valid * (G::L / 8); i += G::L) {
+    const int s = i / (G::L / 8), j = i - s * (G::L / 8);
     const long long t = t0 + s;
     const long long n = t / n_mcus, g = t - n * n_mcus;
-    zz_out[(n * n_slots) * 64 + g * L + tid] =
-        static_cast<int16_t>(zq[s * L + tid]);
+    reinterpret_cast<uint4*>(zz_out + (n * n_slots) * 64 + g * G::L)[j] =
+        src[i];
   }
 }
 
@@ -201,36 +219,68 @@ k1_gray_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
 
 enum Variant { kRows = 0, kRepack = 1, kSeparable = 2 };
 
-// src is the image [B,H,W,3] (rows, separable) or the repack [B*n_mcu, K]
-// (repack); op is the dense operator m (rows, repack) or sep (separable).
+struct Args {
+  const void *src, *op, *q;
+  void* zz_out;
+  int B, H, W, n_slots;
+  cudaStream_t stream;
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <int HS, int VS>
-cudaError_t launch(int variant, const void* src, int B, int H, int W,
-                   int n_slots, const void* op, const void* bias,
-                   const void* q, void* zz_out, cudaStream_t stream) {
+cudaError_t launch_rows(const Args& a, int my, int mx) {
   constexpr int L = (HS * VS + 2) * 64;
-  const int my = (H + 8 * VS - 1) / (8 * VS);
-  const int mx = (W + 8 * HS - 1) / (8 * HS);
+  constexpr size_t kBytes = smem_bytes<HS, VS>();
+  if (my > 65535 || a.B > 65535) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(k1_kernel<HS, VS>, kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((mx + kTileMcus - 1) / kTileMcus, my, a.B);
+  k1_kernel<HS, VS><<<grid, L, kBytes, a.stream>>>(
+      static_cast<const uint8_t*>(a.src), a.H, a.W,
+      load_alignment(a.src, a.W), mx, a.n_slots,
+      static_cast<const float*>(a.op), static_cast<const float*>(a.q),
+      static_cast<int16_t*>(a.zz_out));
+  return cudaGetLastError();
+}
+
+// src is the image [B,H,W,3] (rows, separable) or the repack [B*n_mcu, K]
+// (repack); op is KDCT_ZZ (rows, repack) or sep (separable).
+template <int HS, int VS>
+cudaError_t launch(int variant, const Args& a) {
+  constexpr int L = (HS * VS + 2) * 64;
+  const int my = (a.H + 8 * VS - 1) / (8 * VS);
+  const int mx = (a.W + 8 * HS - 1) / (8 * HS);
   const int n_mcus = my * mx;
-  if (n_slots < n_mcus * (HS * VS + 2)) return cudaErrorInvalidValue;
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  const float* o = static_cast<const float*>(op);
-  const float* qf = static_cast<const float*>(q);
-  int16_t* out = static_cast<int16_t*>(zz_out);
-  const dim3 grid((n_mcus + kTile - 1) / kTile, B);
+  if (a.n_slots < n_mcus * (HS * VS + 2)) return cudaErrorInvalidValue;
+  const float* o = static_cast<const float*>(a.op);
+  const float* qf = static_cast<const float*>(a.q);
+  int16_t* out = static_cast<int16_t*>(a.zz_out);
   if (variant == kRows) {
-    k1_kernel<HS, VS><<<grid, L, 0, stream>>>(
-        s, H, W, mx, n_mcus, n_slots, o, static_cast<const float*>(bias), qf,
-        out);
+    return launch_rows<HS, VS>(a, my, mx);
   } else if (variant == kRepack) {
-    const long long total = static_cast<long long>(B) * n_mcus;
-    const long long blocks = (total + kTile - 1) / kTile;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    k1_repack_kernel<HS, VS><<<static_cast<unsigned>(blocks), L, 0, stream>>>(
-        s, total, n_mcus, n_slots, o, static_cast<const float*>(bias), qf,
-        out);
+    constexpr int T = kTileMcus;
+    constexpr size_t kBytes = smem_bytes<HS, VS>();
+    const long long total = static_cast<long long>(a.B) * n_mcus;
+    const long long blocks = (total + T - 1) / T;
+    if (blocks > 0x7fffffffLL || !aligned16(a.src))
+      return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(k1_repack_kernel<HS, VS>, kBytes);
+    if (err != cudaSuccess) return err;
+    k1_repack_kernel<HS, VS>
+        <<<static_cast<unsigned>(blocks), L, kBytes, a.stream>>>(
+            static_cast<const uint8_t*>(a.src), total, n_mcus, a.n_slots, o,
+            qf, out);
   } else if (variant == kSeparable) {
-    k1_color_kernel<HS, VS><<<grid, L, 0, stream>>>(s, H, W, mx, n_mcus,
-                                                    n_slots, o, qf, out);
+    const dim3 grid((n_mcus + kTile - 1) / kTile, a.B);
+    k1_color_kernel<HS, VS><<<grid, L, 0, a.stream>>>(
+        static_cast<const uint8_t*>(a.src), a.H, a.W, mx, n_mcus, a.n_slots,
+        o, qf, out);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -239,28 +289,26 @@ cudaError_t launch(int variant, const void* src, int B, int H, int W,
 
 }  // namespace
 
-// variant 0 (rows): src = img [B,H,W,3] u8, op = m [3*64*nb, (nb+2)*64] f32
-// (natural basis), bias [(nb+2)*64] f32. variant 1 (repack): src = the MCU
-// repack [B, n_mcu, 3*64*nb] u8 (16-byte aligned), op and bias as rows.
-// variant 2 (separable): src = img, op = sep [(1+nb)*64, 64] f32, bias
-// unused. q [(nb+2)*64] f32; zz_out [B, n_slots, 64] i16 with n_slots >=
-// n_mcu*(nb+2) (the blocks past it are not written). Returns
-// cudaGetLastError().
+// variant 0 (rows): src = img [B,H,W,3] u8, op = KDCT_ZZ [64,64] f32. variant
+// 1 (repack): src = the MCU repack [B, n_mcu, 3*64*nb] u8 (16-byte aligned),
+// op as rows. variant 2 (separable): src = img, op = sep
+// [(1+nb)*64, 64] f32. q [(nb+2)*64] f32; op, q and zz_out 16-byte aligned;
+// zz_out [B, n_slots, 64] i16 with n_slots >= n_mcu*(nb+2) (the blocks past
+// it are not written). Returns cudaGetLastError().
 extern "C" int k1_dct_launch(int variant, const void* src, int B, int H,
                              int W, int hs, int vs, int n_slots,
-                             const void* op, const void* bias, const void* q,
-                             void* zz_out, void* stream) {
-  if (B < 1 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (hs == 2 && vs == 2)
-    err = launch<2, 2>(variant, src, B, H, W, n_slots, op, bias, q, zz_out, st);
-  else if (hs == 2 && vs == 1)
-    err = launch<2, 1>(variant, src, B, H, W, n_slots, op, bias, q, zz_out, st);
-  else if (hs == 1 && vs == 1)
-    err = launch<1, 1>(variant, src, B, H, W, n_slots, op, bias, q, zz_out, st);
-  else
+                             const void* op, const void* q, void* zz_out,
+                             void* stream) {
+  if (B < 1 || H < 1 || W < 1 || !aligned16(op) || !aligned16(q) ||
+      !aligned16(zz_out))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{src, op, q, zz_out, B, H, W, n_slots,
+               static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (hs == 2 && vs == 2) err = launch<2, 2>(variant, a);
+  else if (hs == 2 && vs == 1) err = launch<2, 1>(variant, a);
+  else if (hs == 1 && vs == 1) err = launch<1, 1>(variant, a);
+  else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

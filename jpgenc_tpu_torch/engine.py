@@ -25,8 +25,8 @@ B * n_segments segments, the compaction aligns segment starts and the host
 finalize joins them with RSTn.
 
 `EncodePlan` takes the role of the reference's `DevicePlan`: its buffers are
-the transform operators, the bias, the quant rows, the packed standard
-Huffman tables and the layout's symbol plan and scan gather.
+the transform operators, the quant rows, the packed standard Huffman tables
+and the layout's symbol plan and scan gather.
 """
 from __future__ import annotations
 
@@ -240,8 +240,8 @@ def finalize_host_w(up: np.ndarray, nbits: np.ndarray, first_rst: int,
 class EncodePlan(nn.Module):
     """Per-(layout, quant, tables) encode pipeline on one device.
 
-    Buffers: the transform operator m (colour: the natural-basis dense
-    operator with its bias; gray: KDCT_ZZ, bias unused), the separable
+    Buffers: the transform operator kdct (KDCT_ZZ [64, 64], the one operand
+    of the shared per-block transform, colour and gray), the separable
     operator sep (colour), the quant row q (zigzag order; colour: luma tiled
     nb times then chroma twice), the natural-order int32 quant tables qnat
     (islow), the packed standard Huffman tables, the symbol plan of the
@@ -260,9 +260,8 @@ class EncodePlan(nn.Module):
         nb = c0.hs * c0.vs
         qzz = tables["qzz"]
         if layout.is_gray:
-            m, bias, q = _KDCT_ZZ, np.zeros(64, np.float32), qzz[0]
+            q = qzz[0]
         else:
-            m, bias = k1_dct._dense_operator(c0.hs, c0.vs, "natural")
             q = torch.cat([qzz[0].repeat(nb), qzz[1], qzz[1]])
             sep = tables.get("sep")
             if sep is None:
@@ -270,8 +269,7 @@ class EncodePlan(nn.Module):
                     *k1_dct.build_operators(layout, tables["qnat"])[:2]))
             self.register_buffer("sep", sep.contiguous().to(dev))
         self.register_buffer(
-            "m", torch.from_numpy(np.ascontiguousarray(m)).to(dev))
-        self.register_buffer("bias", torch.from_numpy(bias).reshape(-1).to(dev))
+            "kdct", torch.from_numpy(np.ascontiguousarray(_KDCT_ZZ)).to(dev))
         self.register_buffer("q", q.contiguous().to(dev))
         for name in ("qnat", "ac_rows", "dc_rows", "misc"):
             self.register_buffer(name, tables[name].contiguous().to(dev))
@@ -308,8 +306,7 @@ class EncodePlan(nn.Module):
         (wstream [B, cap_u/4] int32, nbits [B, n_seg] int32, ovf [B] bool),
         coded with the plan's tables."""
         buf, bits = k1a_fused.fused_pixels_to_pack(
-            imgs, self.layout, self.m, self.bias, self.q,
-            self.standard_tables, w_blk)
+            imgs, self.layout, self.kdct, self.q, self.standard_tables, w_blk)
         return self.merge(buf, bits, cap_u, w_blk)
 
     def zz_scan(self, imgs: torch.Tensor):
@@ -317,7 +314,7 @@ class EncodePlan(nn.Module):
         [B, S, 64] int16, S padded to whole segments, and their DC
         differences [B, S] int32); both stay on the device for pass 2."""
         zz = k1_dct.fused_pixels_to_scan(
-            imgs, self.layout, self.m, self.bias, self.q,
+            imgs, self.layout, self.kdct, self.q,
             sep=None if self.layout.is_gray else self.sep)
         return zz, block_pack.slot_metadata(self.prev_same, zz)
 
@@ -352,7 +349,7 @@ class EncodePlan(nn.Module):
         device, for pass 2)."""
         n_tabs = 1 if self.layout.is_gray else 2
         per_img = [tables_from_freq(f, n_tabs) for f in hist.cpu().numpy()]
-        return per_img, device_tables(*zip(*per_img), self.m.device)
+        return per_img, device_tables(*zip(*per_img), self.q.device)
 
     def entropy_from_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor, tables,
                         cap_u: int, w_blk: int):

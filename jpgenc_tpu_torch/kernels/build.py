@@ -40,7 +40,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "k1a_fused_launch": [_P, _I, _I, _I, _I, _I,      # img, B, H, W, hs, vs
                          _I, _I,                      # mps, n_slots
-                         _P, _P, _P,                  # m, bias, q
+                         _P, _P,                      # kdct, q
                          _P, _P, _P,                  # ac_rows, dc_rows, misc
                          _I, _P, _P, _P, _P],         # w_blk, buf, bits, zz, stream
     "k1a_gray_launch": [_P, _I, _I, _I,               # img, B, H, W
@@ -50,7 +50,7 @@ SIGNATURES = {
                         _I, _P, _P, _P, _P],          # w_blk, buf, bits, zz, stream
     "k1_dct_launch": [_I, _P, _I, _I, _I, _I, _I,     # variant, src, B, H, W, hs, vs
                       _I,                             # n_slots
-                      _P, _P, _P, _P, _P],            # op, bias, q, zz, stream
+                      _P, _P, _P, _P],                # op, q, zz, stream
     "k1_gray_launch": [_P, _I, _I, _I, _I,            # img, B, H, W, n_slots
                        _P, _P, _P, _P],               # kdct, q, zz, stream
     "block_pack_launch": [_P, _P, _P, _P, _P,         # zz, dcdiff, actab, dctab, valid
@@ -64,6 +64,7 @@ SIGNATURES = {
 }
 
 _LIB = None
+_LOADED = {}        # library path -> loaded library
 #: wall seconds the last build (or cache hit) took, and nvcc's stderr
 build_seconds = None
 build_log = ""
@@ -140,8 +141,20 @@ def library() -> ctypes.CDLL:
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     build_seconds = time.perf_counter() - t0
-    _LIB = lib
+    _LIB = _LOADED[so] = lib
     return lib
+
+
+def select(*defines: str) -> ctypes.CDLL:
+    """Make `library()` the kernels compiled with these extra nvcc flags
+    (`select("-DJPGENC_BPT=8")`; none: the default build) and return it. For
+    measuring a compile-time choice against another in one process
+    (kernels/tile_sweep.py); the package itself never calls it."""
+    global _LIB, NVCC_FLAGS
+    NVCC_FLAGS = [f for f in NVCC_FLAGS if not f.startswith("-D")]
+    NVCC_FLAGS += list(defines)
+    _LIB = _LOADED.get(library_path())
+    return library()
 
 
 def check(rc: int, name: str) -> None:

@@ -7,8 +7,8 @@ for a CUDA tensor and takes a plain version only for a CPU tensor. Colour
 has three variants, one per Pallas kernel of the reference:
 
   "rows" (replaces `_dense_dma_kernel`): MCUs read from the image as it
-    lies, tiles of MCUs of one image;
-  "repack" (replaces `_dense_kernel`): the same dense operator over the
+    lies, tiles of MCUs inside one MCU row of one image;
+  "repack" (replaces `_dense_kernel`): the same transform over the
     MCU-contiguous repack `mcu_bytes` (torch ops, the reference's XLA
     prologue `mcu_pack_words`), flat tiles that ignore image rows. Taken
     where the reference takes it: frames whose MCU row is past ROW_GATE_BYTES;
@@ -16,22 +16,31 @@ has three variants, one per Pallas kernel of the reference:
     luma block and one [nb*64, 64] product per chroma plane. Taken for every
     colour frame when the module switch K1_DENSE is False.
 
+The reference's two dense kernels multiply an MCU's bytes by one dense
+[3*mh*mw, (nb+2)*64] operator built for a matrix unit. "rows" and "repack"
+compute the same function per block instead (the shared transform), in the
+order of the reference's own path off the TPU (engine.pixels_to_scan):
+
+  1. BT.601 per pixel (ops/color.py:15-23: y, cb + 128, cr + 128);
+  2. box-mean subsample of the chroma planes, the hs x vs samples added in
+     row-major order, times 1 / (hs*vs);
+  3. - 128 on every sample;
+  4. each 8x8 block times KDCT_ZZ [64, 64];
+  5. / q (a true division), round half away.
+
 The plain versions:
 
-  dense colour (`pixels_to_scan_plain`, both dense variants): replicate pad,
-    MCU regroup in natural byte order, one f32 matmul against the dense
-    operator (color + subsample + FDCT + zigzag), + bias, / q, round half
-    away;
+  the shared transform (`transform_plain`, `pixels_to_scan_plain`; colour
+    and gray): those five steps in torch ops, gray from step 3;
   separable colour (`color_plain`): BT.601 elementwise in the reference's
     order of operations, per-block matmul with KDCT_ZZ, matmul with sc, / q,
-    round half away;
-  gray: (x - 128) @ KDCT_ZZ, / q, round half away.
+    round half away.
 
-The dense kernels are also the transform halves of the K1A kernels
-(ops/cuda/k1a_fused.py), which call the same device functions: an image
-coded by either path holds the same coefficients. The separable kernel's
-sums associate differently, so it agrees with them except at knife edges of
-the rounding (k1_dct.py:18-24).
+The "rows" and "repack" kernels are also the transform half of the K1A
+kernel (ops/cuda/k1a_fused.py), which calls the same device functions: an
+image coded by either path holds the same coefficients. The separable kernel
+subsamples after the products, so its sums associate differently and it
+agrees with them except at knife edges of the rounding (k1_dct.py:18-24).
 
 [n_mcu, (nb+2)*64] is the interleaved scan order (T.81 A.2.3), so
 [B, n_mcu, (nb+2)*64] outputs are [B, n_slots, 64] slot arrays by a free
@@ -59,9 +68,11 @@ launches_color = 0
 launches_gray = 0
 plain_calls = 0
 
-#: colour variant switch (k1_dct.py:92): True takes the dense operator (rows
-#: or repack by the row gate), False the separable kernel for every colour
-#: frame. One process keeps one setting, so no file mixes formulations.
+#: colour variant switch (k1_dct.py:92). In the reference True takes the
+#: dense operator; here True takes its counterpart, the shared per-block
+#: transform (the kernel K1A also runs: rows or repack by the row gate), and
+#: False the separable kernel for every colour frame. One process keeps one
+#: setting, so no file mixes formulations.
 K1_DENSE = True
 
 #: The reference's row gate (k1_dct.py:298): bytes of one MCU row's word
@@ -83,54 +94,6 @@ def k1_variant(layout) -> str:
     if 8 * c0.vs * layout.mcus_x * 128 * 4 <= ROW_GATE_BYTES:
         return "rows"
     return "repack"
-
-
-@functools.lru_cache(maxsize=16)
-def _dense_operator(hs: int, vs: int, basis: str = "byte_slot"
-                    ) -> tuple[np.ndarray, np.ndarray]:
-    """(M [4L, (nb+2)*64], bias [1, (nb+2)*64]) fused color+subsample+DCT+
-    zigzag operator over raw interleaved-RGB MCU bytes (k1_dct.py:95-137).
-
-    basis selects the input-lane ordering; all three hold the same f32
-    values, permuted by row:
-      'byte_slot': lane = L*kb + (r*wpr + j) — byte kb of MCU word (r, j);
-      'row_major': lane = (r*4 + kb)*wpr + j;
-      'natural':   lane = r*4*wpr + 4*j + kb — the MCU's bytes in memory
-        order (pixel row r, then pixel, then channel), the layout the CUDA
-        K1A kernel loads into shared memory.
-    bias carries the luma level shift (DCT of the constant -128 plane)."""
-    mh, mw = 8 * vs, 8 * hs
-    nb = hs * vs
-    wpr = mw * 3 // 4                  # u32 words per MCU pixel row
-    lw = mh * wpr                      # words per MCU
-    n_out = (nb + 2) * 64
-    k = np.asarray(_KDCT_ZZ, np.float64)     # [64, 64] pixel -> zz coef
-    cy = (0.299, 0.587, 0.114)
-    ccb = (-0.168735892, -0.331264108, 0.5)
-    ccr = (0.5, -0.418687589, -0.081312411)
-    m = np.zeros((4 * lw, n_out), np.float64)
-    for w in range(lw):
-        r, j = divmod(w, wpr)
-        for kb in range(4):
-            px, c = divmod(4 * j + kb, 3)
-            if basis == "byte_slot":
-                lane = lw * kb + w
-            elif basis == "row_major":
-                lane = (r * 4 + kb) * wpr + j
-            elif basis == "natural":
-                lane = r * 4 * wpr + 4 * j + kb
-            else:
-                raise ValueError(f"unknown basis {basis!r}")
-            blk = (r // 8) * hs + (px // 8)
-            pos = (r % 8) * 8 + (px % 8)
-            m[lane, blk * 64:(blk + 1) * 64] += cy[c] * k[pos]
-            cpos = (r // vs) * 8 + (px // hs)
-            wgt = 1.0 / (hs * vs)
-            m[lane, nb * 64:(nb + 1) * 64] += ccb[c] * wgt * k[cpos]
-            m[lane, (nb + 1) * 64:] += ccr[c] * wgt * k[cpos]
-    bias = np.concatenate([np.tile(-128.0 * k.sum(axis=0), nb),
-                           np.zeros(128)])
-    return m.astype(np.float32), bias.astype(np.float32).reshape(1, -1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -197,8 +160,8 @@ def pad_slots(x: torch.Tensor, layout) -> torch.Tensor:
 
 def mcu_bytes(imgs: torch.Tensor, layout) -> torch.Tensor:
     """Colour [B, H, W, 3] u8 -> [B, n_mcu, 3*mh*mw] u8: each MCU's
-    replicate-padded bytes in memory order (pixel row, pixel, channel) — the
-    'natural' basis of _dense_operator. Gray [B, H, W] u8 -> [B, n_blocks,
+    replicate-padded bytes in memory order (pixel row, pixel, channel), the
+    repack kernel's input. Gray [B, H, W] u8 -> [B, n_blocks,
     64] u8: each 8x8 block row-major."""
     hs, vs, _ = geometry(layout)
     c0 = layout.comps[0]
@@ -214,29 +177,82 @@ def mcu_bytes(imgs: torch.Tensor, layout) -> torch.Tensor:
             .reshape(b, my * mx, 3 * mh * mw))
 
 
-def transform_plain(imgs, layout, m, bias, q) -> torch.Tensor:
-    """Pixels -> quantized zigzag [B, n_mcu, (nb+2)*64] int32 (gray:
-    [B, n_blocks, 64]).
+def box_mean(plane: torch.Tensor, hs: int, vs: int) -> torch.Tensor:
+    """[B, H, W] f32 -> [B, H/vs, W/hs]: the mean of every vs x hs box, its
+    samples added in row-major order and the sum scaled by the exact
+    1 / (hs*vs) (color.py:37-43)."""
+    if hs == 1 and vs == 1:
+        return plane
+    b, h, w = plane.shape
+    p = plane.reshape(b, h // vs, vs, w // hs, hs)
+    total = None
+    for i in range(vs):
+        for j in range(hs):
+            total = p[:, :, i, :, j] if total is None else \
+                total + p[:, :, i, :, j]
+    return total * (1.0 / (hs * vs))
 
-    Colour: m [3*mh*mw, (nb+2)*64] f32 natural-basis operator; bias, q
-    [(nb+2)*64] f32 (q tiled per block: luma nb times, then chroma twice).
-    Gray: m is KDCT_ZZ [64, 64], q [64] the luma row in zigzag order, and
-    the level shift is taken from the pixels, so bias is not used."""
-    x = mcu_bytes(imgs, layout).to(torch.float32)
+
+#: BT.601 full range (color.py:20-22) as the float32 values the kernels hold,
+#: so that a float64 evaluation measures the same function
+_Y, _CB, _CR = (tuple(float(np.float32(c)) for c in row) for row in (
+    (0.299, 0.587, 0.114), (-0.168735892, -0.331264108, 0.5),
+    (0.5, -0.418687589, -0.081312411)))
+
+
+def mcu_samples(imgs: torch.Tensor, layout,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Colour [B, H, W, 3] u8 -> [B, n_mcu, nb+2, 64]: steps 1-3 of the
+    shared transform. Per MCU its blocks in scan order (Y blocks row-major,
+    Cb, Cr), each 8x8 block of level-shifted samples row-major. dtype
+    float64 gives the checks their near-exact value of the same function."""
+    hs, vs, nb = geometry(layout)
+    c0 = layout.comps[0]
+    n = imgs.shape[0]
+    my, mx = layout.mcus_y, layout.mcus_x
+    x = pad_replicate(imgs, c0.plane_h, c0.plane_w).to(dtype)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = _Y[0] * r + _Y[1] * g + _Y[2] * b
+    cb = _CB[0] * r + _CB[1] * g + _CB[2] * b + 128.0
+    cr = _CR[0] * r + _CR[1] * g + _CR[2] * b + 128.0
+    yb = ((y - 128.0).reshape(n, my, vs, 8, mx, hs, 8)
+          .permute(0, 1, 4, 2, 5, 3, 6).reshape(n, my * mx, nb, 64))
+    chroma = [((box_mean(c, hs, vs) - 128.0).reshape(n, my, 8, mx, 8)
+               .permute(0, 1, 3, 2, 4).reshape(n, my * mx, 1, 64))
+              for c in (cb, cr)]
+    return torch.cat([yb, *chroma], dim=2)
+
+
+def scaled_coefficients(imgs, layout, kdct, q,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Steps 1-4 and the division of step 5, before the rounding:
+    [B, n_mcu, (nb+2)*64] (gray: [B, n_blocks, 64]) in dtype."""
     if layout.is_gray:
-        out = torch.matmul(x - 128.0, m)
+        x = mcu_bytes(imgs, layout).to(dtype) - 128.0
     else:
-        out = torch.matmul(x, m) + bias
-    return round_half_away(out / q).to(torch.int32)
+        x = mcu_samples(imgs, layout, dtype)
+    out = torch.matmul(x, kdct.to(dtype))
+    return out.reshape(x.shape[0], x.shape[1], -1) / q.to(dtype)
 
 
-def pixels_to_scan_plain(imgs, layout, m, bias, q) -> torch.Tensor:
-    """The plain version of the dense K1 kernels (rows and repack) and of
-    the gray one: transform_plain as [B, S, 64] int16, zero blocks past
+def transform_plain(imgs, layout, kdct, q) -> torch.Tensor:
+    """Pixels -> quantized zigzag [B, n_mcu, (nb+2)*64] int32 (gray:
+    [B, n_blocks, 64]): the shared transform in torch ops.
+
+    kdct is KDCT_ZZ [64, 64] f32. Colour: q [(nb+2)*64] f32, the quantizer
+    in zigzag order tiled per block (luma nb times, then chroma twice).
+    Gray: q [64], the luma row."""
+    return round_half_away(
+        scaled_coefficients(imgs, layout, kdct, q)).to(torch.int32)
+
+
+def pixels_to_scan_plain(imgs, layout, kdct, q) -> torch.Tensor:
+    """The plain version of the "rows" and "repack" K1 kernels and of the
+    gray one: transform_plain as [B, S, 64] int16, zero blocks past
     n_scan."""
     global plain_calls
     plain_calls += 1
-    zz = transform_plain(imgs, layout, m, bias, q)
+    zz = transform_plain(imgs, layout, kdct, q)
     return pad_slots(zz.reshape(zz.shape[0], -1, 64).to(torch.int16), layout)
 
 
@@ -293,34 +309,27 @@ def _check(t, dtype, shape, device) -> None:
                          f"expected contiguous {shape} {dtype} on {device}")
 
 
-def check_operands(imgs: torch.Tensor, layout, m, bias, q) -> None:
+def check_operands(imgs: torch.Tensor, layout, op, q,
+                   separable: bool = False) -> None:
     """Raise unless imgs and the transform operands are what the K1 / K1A
     kernels take for this layout: contiguous, on imgs' device, of the
-    expected type and shape. bias is None for the separable kernel, whose
-    operator m is sep."""
+    expected type and shape. op is KDCT_ZZ [64, 64], or sep for the
+    separable kernel."""
     _, _, nb = geometry(layout)
     hw = (layout.height, layout.width)
-    f32 = torch.float32
-    if layout.is_gray:
-        shape = imgs.shape[:1] + hw
-        ops = [(m, (64, 64)), (q, (64,))]
-    else:
-        l_out = (nb + 2) * 64
-        shape = imgs.shape[:1] + hw + (3,)
-        if bias is None:
-            ops = [(m, ((1 + nb) * 64, 64)), (q, (l_out,))]
-        else:
-            ops = [(m, (3 * 64 * nb, l_out)), (bias, (l_out,)), (q, (l_out,))]
+    shape = imgs.shape[:1] + hw + (() if layout.is_gray else (3,))
     if (imgs.dtype != torch.uint8 or tuple(imgs.shape) != tuple(shape)
             or not imgs.is_contiguous()):
         raise ValueError(f"imgs must be a contiguous uint8 tensor of shape "
                          f"[B, {', '.join(map(str, shape[1:]))}] matching "
                          f"the layout, got {tuple(imgs.shape)} {imgs.dtype}")
-    for t, shp in ops:
-        _check(t, f32, shp, imgs.device)
+    _check(op, torch.float32, ((1 + nb) * 64 if separable else 64, 64),
+           imgs.device)
+    _check(q, torch.float32, (64 if layout.is_gray else (nb + 2) * 64,),
+           imgs.device)
 
 
-def fused_pixels_to_scan(imgs: torch.Tensor, layout, m, bias, q,
+def fused_pixels_to_scan(imgs: torch.Tensor, layout, kdct, q,
                          variant: str | None = None,
                          sep: torch.Tensor | None = None) -> torch.Tensor:
     """[B, H, W, 3] u8 (gray: [B, H, W]) -> quantized zigzag blocks
@@ -328,8 +337,8 @@ def fused_pixels_to_scan(imgs: torch.Tensor, layout, m, bias, q,
     segments with zero blocks. Operands as transform_plain. variant picks
     the colour kernel ("rows", "repack", "separable"; None: k1_variant, the
     reference's selection); the separable one takes sep (separable_operator;
-    None: built for the layout) and ignores m and bias. On a CUDA tensor
-    this launches the kernel (or raises); on a CPU tensor it runs the plain
+    None: built for the layout) and ignores kdct. On a CUDA tensor this
+    launches the kernel (or raises); on a CPU tensor it runs the plain
     version."""
     global launches, launches_repack, launches_color, launches_gray
     hs, vs, _ = geometry(layout)
@@ -345,13 +354,11 @@ def fused_pixels_to_scan(imgs: torch.Tensor, layout, m, bias, q,
     if imgs.device.type == "cpu":
         if variant == "separable":
             return color_plain(imgs, layout, sep, q)
-        return pixels_to_scan_plain(imgs, layout, m, bias, q)
+        return pixels_to_scan_plain(imgs, layout, kdct, q)
     if imgs.device.type != "cuda":
         raise ValueError(f"unsupported device {imgs.device}")
-    if variant == "separable":
-        check_operands(imgs, layout, sep, None, q)
-    else:
-        check_operands(imgs, layout, m, bias, q)
+    op = sep if variant == "separable" else kdct
+    check_operands(imgs, layout, op, q, separable=variant == "separable")
     b, h, w = imgs.shape[:3]
     s_pad = n_slots_padded(layout)
     zz = torch.empty((b, s_pad, 64), dtype=torch.int16, device=imgs.device)
@@ -364,15 +371,12 @@ def fused_pixels_to_scan(imgs: torch.Tensor, layout, m, bias, q,
         stream = torch.cuda.current_stream().cuda_stream
         if layout.is_gray:
             rc = lib.k1_gray_launch(imgs.data_ptr(), b, h, w, s_pad,
-                                    m.data_ptr(), q.data_ptr(), zz.data_ptr(),
-                                    stream)
+                                    kdct.data_ptr(), q.data_ptr(),
+                                    zz.data_ptr(), stream)
         else:
-            op = sep if variant == "separable" else m
             rc = lib.k1_dct_launch(
                 VARIANTS.index(variant), src.data_ptr(), b, h, w, hs, vs,
-                s_pad, op.data_ptr(),
-                None if variant == "separable" else bias.data_ptr(),
-                q.data_ptr(), zz.data_ptr(), stream)
+                s_pad, op.data_ptr(), q.data_ptr(), zz.data_ptr(), stream)
     build.check(rc, "k1_dct")
     if layout.is_gray:
         launches_gray += 1

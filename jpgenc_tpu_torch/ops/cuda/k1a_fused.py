@@ -7,8 +7,10 @@
 `pixels_to_pack_plain` only for a CPU tensor. The plain version is
 `entropy_plain(transform_plain(...))`:
 
-  transform_plain (ops/cuda/k1_dct.py, K1's plain version): the math of the
-    kernels' first half (k1a_fused.py:62-71, :376-378);
+  transform_plain (ops/cuda/k1_dct.py, K1's plain version): the function of
+    the kernels' first half (k1a_fused.py:62-71, :376-378) as the shared
+    per-block transform: BT.601, box subsample, - 128, each 8x8 block times
+    KDCT_ZZ, / q, round half away;
   entropy_plain: DC DPCM (the Y chain in (mcu, blk) order, chroma per MCU,
     gray block to block in raster order; reset at every restart-segment
     start, MCU g with g % mps == 0, mps = restart_interval or n_mcus) and
@@ -68,15 +70,15 @@ def entropy_plain(zz: torch.Tensor, layout, tables, w_blk: int
             pad_slots(bits.reshape(b, -1), layout))
 
 
-def pixels_to_pack_plain(imgs, layout, m, bias, q, tables, w_blk: int):
+def pixels_to_pack_plain(imgs, layout, kdct, q, tables, w_blk: int):
     """The plain version of the K1A kernel: entropy_plain(transform_plain)."""
     global plain_calls
     plain_calls += 1
-    return entropy_plain(transform_plain(imgs, layout, m, bias, q), layout,
+    return entropy_plain(transform_plain(imgs, layout, kdct, q), layout,
                          tables, w_blk)
 
 
-def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
+def fused_pixels_to_pack(imgs: torch.Tensor, layout, kdct, q, tables,
                          w_blk: int, return_zz: bool = False):
     """[B, H, W, 3] u8 (gray: [B, H, W]) -> (buf [B, S, w_blk] int32,
     bits [B, S] int32[, zz [B, n_mcu, (nb+2)*64] int16]), S = n_segments *
@@ -93,13 +95,13 @@ def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
     hs, vs, nb = geometry(layout)
     if imgs.device.type == "cpu":
         if return_zz:
-            zz = transform_plain(imgs, layout, m, bias, q)
+            zz = transform_plain(imgs, layout, kdct, q)
             buf, bits = entropy_plain(zz, layout, tables, w_blk)
             return buf, bits, zz.to(torch.int16)
-        return pixels_to_pack_plain(imgs, layout, m, bias, q, tables, w_blk)
+        return pixels_to_pack_plain(imgs, layout, kdct, q, tables, w_blk)
     if imgs.device.type != "cuda":
         raise ValueError(f"unsupported device {imgs.device}")
-    check_operands(imgs, layout, m, bias, q)
+    check_operands(imgs, layout, kdct, q)
     if not 1 <= w_blk <= MAX_W_BLK:
         raise ValueError(f"w_blk must be in [1, {MAX_W_BLK}], got {w_blk}")
     ac_rows, dc_rows, misc = tables
@@ -127,13 +129,13 @@ def fused_pixels_to_pack(imgs: torch.Tensor, layout, m, bias, q, tables,
         stream = torch.cuda.current_stream().cuda_stream
         if layout.is_gray:
             rc = lib.k1a_gray_launch(
-                imgs.data_ptr(), b, h, w, mps, n_slots, m.data_ptr(),
+                imgs.data_ptr(), b, h, w, mps, n_slots, kdct.data_ptr(),
                 q.data_ptr(), ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
                 w_blk, buf.data_ptr(), bits.data_ptr(), zz_ptr, stream)
         else:
             rc = lib.k1a_fused_launch(
                 imgs.data_ptr(), b, h, w, hs, vs, mps, n_slots,
-                m.data_ptr(), bias.data_ptr(), q.data_ptr(),
+                kdct.data_ptr(), q.data_ptr(),
                 ac_rows.data_ptr(), dc_rows.data_ptr(), misc.data_ptr(),
                 w_blk, buf.data_ptr(), bits.data_ptr(), zz_ptr, stream)
     build.check(rc, "k1a_fused")

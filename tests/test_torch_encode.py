@@ -5,22 +5,26 @@ Every input is made from a literal seed in this file, so a case sees the same
 pixels in every run and on every worker. What a whole file asserts is split
 in two, so that it is steady on any machine:
 
-- the transform: both packages compute it in float32, in different
-  formulations (the reference's CPU path is separable, the port's plain
-  version is the dense operator of the TPU kernel; gray: jnp vs torch
-  matmul), so a coefficient whose exact value lies within ~1e-5 of a rounding
-  boundary can round differently. Tolerance: the knife-edge policy the
-  reference states for itself (jpgenc_tpu/ops/pallas/k1_dct.py:18-24):
-  |diff| <= 1 on at most max(1e-4, 2/size) of the coefficients of the two
-  files (decoded with the C++ scan decoder);
+- the transform: both packages compute it in float32 in the same
+  formulation (the reference's CPU path engine.pixels_to_scan and the
+  port's plain version: BT.601, box mean, - 128, each block times KDCT_ZZ,
+  divide, round), by two matmul libraries and with a box sum whose order
+  XLA chooses by shape, so a coefficient whose exact value lies within
+  ~1e-5 of a rounding boundary can still round differently. Tolerance: the
+  knife-edge policy the reference states for itself
+  (jpgenc_tpu/ops/pallas/k1_dct.py:18-24): |diff| <= 1 on at most
+  max(1e-4, 2/size) of the coefficients of the two files (decoded with the
+  C++ scan decoder). The inputs of this file measure 0 differing
+  coefficients, and the six on which the port's earlier plain version (the
+  TPU kernel's dense operator) rounded one coefficient apart are asserted
+  byte for byte in test_knife_edge_cases_recorded;
 - everything after the transform: byte-exact. The reference's own quantized
   coefficients (read back from its file) go through the port's entropy
   path — DPCM + per-block pack, kernel B, word compaction, fetch, stuffing
   finalize, headers — and the file must equal the reference's byte for byte.
 
 Whole-file equality from pixels is asserted too, wherever the transform
-check found no differing coefficient. The recorded flips are in ROADMAP.md
-Queue 3.
+check found no differing coefficient.
 """
 import numpy as np
 import pytest
@@ -219,24 +223,29 @@ def test_encode_batch_gray_equals_per_image_reference():
     _assert_batch(np.ascontiguousarray(_batch()[..., 1]))
 
 
-@pytest.mark.parametrize("h,w,sub,quality", [(128, 128, "420", 75),
-                                             (128, 256, "420", 95)])
+@pytest.mark.parametrize("h,w,sub,quality", [
+    (128, 128, "420", 75), (128, 256, "420", 95), (128, 128, "422", 75),
+    (128, 128, "444", 75), (128, 128, "420", 90), (128, 256, "444", 95)])
 def test_knife_edge_cases_recorded(h, w, sub, quality):
-    """Inputs with a recorded knife-edge flip (ROADMAP.md Queue 3): the
-    port's file holds exactly the port's coefficients, and they differ from
-    the reference's within the knife-edge policy."""
+    """The six inputs on which the dense-operator plain version rounded one
+    coefficient apart from the reference (and float64 said the port was
+    wrong): with the shared per-block transform the port's file holds
+    exactly the port's coefficients, they are the reference's on every
+    coefficient, and the file is `jpgenc_tpu.api.encode`'s byte for byte."""
     img = synth_frame(h, w)
     ours = api.encode(img, quality, sub, device="cpu")
     lay, ours_c = _coefficients(ours)
     ref = japi.encode(img, quality, sub)
     plan = engine.get_plan(h, w, sub, quality, "cpu")
-    zz = k1a_fused.transform_plain(torch.from_numpy(img)[None], lay, plan.m,
-                                   plan.bias, plan.q).reshape(-1, 64).numpy()
+    zz = k1a_fused.transform_plain(torch.from_numpy(img)[None], lay, plan.kdct,
+                                   plan.q).reshape(-1, 64).numpy()
     expect = np.empty_like(zz)
     expect[lay.scan_flat] = zz
     np.testing.assert_array_equal(ours_c, expect)
-    _transform_diffs(ours, ref)
-    assert _file_from_reference_coefficients(ref, quality, False) == ref
+    assert _transform_diffs(ours, ref) == 0
+    assert ours == ref
+    assert api.encode(img, quality, sub, optimize=True, device="cpu") == \
+        japi.encode(img, quality, sub, optimize=True)
 
 
 @pytest.mark.parametrize("kwargs,item", [

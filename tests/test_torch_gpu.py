@@ -41,7 +41,7 @@ def cuda():
 
 def _ops(h, w, sub, quality, device):
     plan = engine.get_plan(h, w, sub, quality, device)
-    return (plan.layout, plan.m, plan.bias, plan.q), \
+    return (plan.layout, plan.kdct, plan.q), \
         (plan.ac_rows, plan.dc_rows, plan.misc)
 
 
@@ -128,15 +128,12 @@ def _only_knife_edges(zz, x, ops):
     Replicate-padded edge blocks of small frames put coefficients exactly on
     a boundary (measured: two of 19968 at 100x62 gray Q75, float64 values
     +-0.49999997), so the fraction alone would be a flaky bound here."""
-    lay, m, bias, q = ops
     plain = k1_dct.transform_plain(x, *ops)
     zz = zz.reshape(plain.shape).to(torch.int32)
     d = zz != plain
     assert int((zz - plain).abs().max()) <= 1
     assert int(d.sum()) <= 1e-3 * d.numel()
-    xb = k1_dct.mcu_bytes(x, lay).double()
-    exact = ((xb - 128.0) @ m.double() if lay.is_gray
-             else xb @ m.double() + bias.double()) / q.double()
+    exact = k1_dct.scaled_coefficients(x, *ops, dtype=torch.float64)
     dist = ((exact - exact.floor()) - 0.5).abs()
     assert bool((dist[d] < 1e-4).all())
 
@@ -525,7 +522,7 @@ WIDE_CASES = [(16, 8208, "420"), (8, 8200, "444")]   # one MCU row, past the gat
 
 def _plan(h, w, sub, quality, dri):
     plan = engine.get_plan(h, w, sub, quality, "cuda", dri)
-    return plan, (plan.layout, plan.m, plan.bias, plan.q), \
+    return plan, (plan.layout, plan.kdct, plan.q), \
         plan.standard_tables
 
 
@@ -617,6 +614,63 @@ def test_k1_separable_kernel_vs_plain_and_k1(cuda, monkeypatch, h, w, sub,
     monkeypatch.setattr(k1_dct, "K1_DENSE", False)
     assert torch.equal(plan.zz_scan(x)[0], zz)
     assert k1_dct.launches_color == before[0] + 2
+
+
+# one MCU, one tile (40 MCUs of 4:2:0 are 640 px, 32 are 512), one MCU more
+# than a tile row, odd sizes, and row pitches 3*W that are a multiple of 16
+# (64, 512, 528, 640, 656, 1040), of 8 (136), of 4 (1028 px: 3084), of 2
+# (130, 62) or odd (53, 75)
+SHARED_CASES = [(16, 16), (8, 8), (16, 512), (16, 528), (16, 640), (16, 656),
+                (33, 1040), (40, 1028), (120, 136), (61, 130), (37, 53),
+                (33, 75), (48, 62), (100, 1337)]
+
+
+@pytest.mark.parametrize("dri", [0, 1, 3, 7, 120])
+@pytest.mark.parametrize("sub", ["420", "422", "444"])
+@pytest.mark.parametrize("h,w", SHARED_CASES)
+def test_shared_transform_kernels(cuda, h, w, sub, dri):
+    """K1A's zz == K1 rows == K1 repack bit for bit; the kernels differ from
+    the plain version only where the float64 value lies within 1e-4 of a
+    rounding boundary; K1A's packed words and bits equal entropy_plain on
+    the kernel's own zz exactly (the DC predictor across tiles, MCU rows and
+    restart segments)."""
+    imgs = np.stack([fixtures.synth_frame(h, w, seed=s) for s in (4, 5)])
+    _, ops, tabs = _plan(h, w, sub, 75, dri)
+    lay = ops[0]
+    x = torch.from_numpy(imgs).to(cuda)
+    before = (k1_dct.plain_calls, k1a_fused.plain_calls)
+    rows = k1_dct.fused_pixels_to_scan(x, *ops, variant="rows")
+    rep = k1_dct.fused_pixels_to_scan(x, *ops, variant="repack")
+    buf, bits, zz = k1a_fused.fused_pixels_to_pack(x, *ops, tabs, 8,
+                                                   return_zz=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rep)
+    assert torch.equal(rows[:, :lay.n_scan].reshape(-1), zz.reshape(-1))
+    assert not rows[:, lay.n_scan:].any()
+    _only_knife_edges(zz, x, ops)
+    ebuf, ebits = k1a_fused.entropy_plain(zz.to(torch.int32), lay, tabs, 8)
+    assert torch.equal(ebits, bits) and torch.equal(ebuf, buf)
+    assert (k1_dct.plain_calls, k1a_fused.plain_calls) == before
+
+
+def test_shared_transform_takes_an_unaligned_batch(cuda):
+    """A batch whose first byte is not 16-byte aligned (a view into a larger
+    buffer) takes the narrower loads and holds the same coefficients."""
+    h, w = 40, 528
+    imgs = np.stack([fixtures.synth_frame(h, w, seed=s) for s in (6, 7)])
+    _, ops, tabs = _plan(h, w, "420", 75, 0)
+    x = torch.from_numpy(imgs).to(cuda)
+    want = k1_dct.fused_pixels_to_scan(x, *ops, variant="rows")
+    for off in (4, 1):
+        flat = torch.zeros(x.numel() + 16, dtype=torch.uint8, device=cuda)
+        view = flat[off:off + x.numel()].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == off and view.is_contiguous()
+        assert torch.equal(want, k1_dct.fused_pixels_to_scan(
+            view, *ops, variant="rows"))
+        _, _, zz = k1a_fused.fused_pixels_to_pack(view, *ops, tabs, 8,
+                                                  return_zz=True)
+        assert torch.equal(want.reshape(-1), zz.reshape(-1))
 
 
 def _rst_markers(scan: bytes) -> list[int]:

@@ -4,7 +4,8 @@ The port imports nothing of `jpgenc_tpu`, so it keeps its own copy of every
 host module it needs (tables, layout, huffman, config, container, native,
 ref, utils.fixtures) and of the helpers it took out of JAX-importing modules
 (ops/pack, engine, ops/transform, ops/color, ops/pallas/k1_dct,
-ops/pallas/block_pack). Each copy is pinned here against the original on
+ops/pallas/block_pack), and of the colour stage the shared transform runs
+before its block products. Each copy is pinned here against the original on
 the same inputs: this file is where the two packages meet.
 """
 import dataclasses
@@ -42,33 +43,103 @@ def test_kdct_zz_and_rounding():
         np.asarray(round_half_away(jnp.asarray(x))))
 
 
-@pytest.mark.parametrize("hs,vs", [(1, 1), (2, 1), (2, 2)])
-@pytest.mark.parametrize("basis", ["byte_slot", "row_major"])
-def test_dense_operator_equals_reference(hs, vs, basis):
-    from jpgenc_tpu.ops.pallas.k1_dct import _dense_operator as ref
-    from jpgenc_tpu_torch.ops.cuda.k1_dct import _dense_operator
-    m, b = _dense_operator(hs, vs, basis)
-    rm, rb = ref(hs, vs, basis)
-    np.testing.assert_array_equal(m, rm)
-    np.testing.assert_array_equal(b, rb)
+_SUB = {(1, 1): "444", (2, 1): "422", (2, 2): "420"}
 
 
 @pytest.mark.parametrize("hs,vs", [(1, 1), (2, 1), (2, 2)])
-def test_natural_basis_is_a_row_permutation(hs, vs):
-    """The natural byte order basis holds row_major's f32 values, row
-    (r*4 + kb)*wpr + j moved to r*4*wpr + 4*j + kb."""
-    from jpgenc_tpu.ops.pallas.k1_dct import _dense_operator as ref
-    from jpgenc_tpu_torch.ops.cuda.k1_dct import _dense_operator
-    m, b = _dense_operator(hs, vs, "natural")
-    rm, rb = ref(hs, vs, "row_major")
-    wpr = 8 * hs * 3 // 4
-    perm = np.empty(m.shape[0], np.int64)
-    for r in range(8 * vs):
-        for j in range(wpr):
-            for kb in range(4):
-                perm[r * 4 * wpr + 4 * j + kb] = (r * 4 + kb) * wpr + j
-    np.testing.assert_array_equal(m, rm[perm])
-    np.testing.assert_array_equal(b, rb)
+@pytest.mark.parametrize("h,w", [(48, 80), (37, 83)])
+def test_mcu_samples_equal_reference_colour_stage(hs, vs, h, w):
+    """Steps 1-3 of the shared transform (BT.601, box mean, - 128, blocks in
+    scan order) hold the reference's float32 samples bit for bit:
+    ops/color.rgb_to_ycbcr -> subsample -> blockify - 128 -> _mcu_group.
+    (Where the subsampled width is a power of two XLA's CPU reduction adds
+    the box as two row sums instead, one ulp apart on about a tenth of the
+    4:2:0 samples; these widths are not, like 1920 and 16384 + 16. The next
+    test pins what holds at such widths.)"""
+    from jpgenc_tpu.ops import color as jcolor, transform as jtransform
+    from jpgenc_tpu.utils.fixtures import synth_frame
+    from jpgenc_tpu_torch.ops.cuda.k1_dct import mcu_samples
+    img = synth_frame(h, w, seed=31)
+    lay = make_layout(h, w, _SUB[hs, vs], 0)
+    c0 = lay.comps[0]
+    ycc = jcolor.rgb_to_ycbcr(jcolor.pad_replicate(jnp.asarray(img),
+                                                   c0.plane_h, c0.plane_w))
+    planes = [ycc[..., 0], jcolor.subsample(ycc[..., 1], hs, vs),
+              jcolor.subsample(ycc[..., 2], hs, vs)]
+    y, cb, cr = (jtransform.blockify(p).reshape(-1, 64) - jnp.float32(128.0)
+                 for p in planes)
+    ref = np.asarray(jeng._mcu_group(y, cb, cr, lay.mcus_y, lay.mcus_x, hs,
+                                     vs))
+    ours = mcu_samples(torch.from_numpy(img)[None],
+                       teng.get_plan(h, w, _SUB[hs, vs], 75, "cpu").layout)
+    assert ours.dtype == torch.float32
+    assert tuple(ours.shape) == (1, lay.n_mcus, hs * vs + 2, 64)
+    np.testing.assert_array_equal(ours[0].reshape(-1, 64).numpy(), ref)
+
+
+@pytest.mark.parametrize("h,w,sub,quality", [
+    (128, 128, "420", 75), (128, 128, "422", 75), (128, 128, "444", 75),
+    (128, 128, "420", 90), (128, 256, "420", 95), (128, 256, "444", 95)])
+def test_mcu_samples_at_power_of_two_widths(h, w, sub, quality):
+    """The other side of the caveat above, pinned: at a power-of-two
+    subsampled width the reference's CPU box sum may associate differently,
+    so steps 1-3 are held to what does hold there. Luma and unsubsampled
+    chroma equal the reference's samples bit for bit, a subsampled chroma
+    sample lies within one ulp of the reference's, and the quantized
+    coefficients equal engine.pixels_to_scan's on every coefficient."""
+    from jpgenc_tpu.ops import color as jcolor, transform as jtransform
+    from jpgenc_tpu.utils.fixtures import synth_frame
+    from jpgenc_tpu_torch.ops.cuda.k1_dct import mcu_samples, transform_plain
+    img = synth_frame(h, w)
+    lay = make_layout(h, w, sub, 0)
+    c0 = lay.comps[0]
+    hs, vs, nb = c0.hs, c0.vs, c0.hs * c0.vs
+    ycc = jcolor.rgb_to_ycbcr(jnp.asarray(img))
+    planes = [ycc[..., 0], jcolor.subsample(ycc[..., 1], hs, vs),
+              jcolor.subsample(ycc[..., 2], hs, vs)]
+    y, cb, cr = (jtransform.blockify(p).reshape(-1, 64) - jnp.float32(128.0)
+                 for p in planes)
+    ref = np.asarray(jeng._mcu_group(y, cb, cr, lay.mcus_y, lay.mcus_x, hs,
+                                     vs)).reshape(lay.n_mcus, nb + 2, 64)
+    plan = teng.get_plan(h, w, sub, quality, "cpu")
+    x = torch.from_numpy(img)[None]
+    ours = mcu_samples(x, plan.layout)[0].numpy()
+    np.testing.assert_array_equal(ours[:, :nb], ref[:, :nb])
+    if nb == 1:
+        np.testing.assert_array_equal(ours, ref)
+    # one ulp of the sample before the level shift, whose exponent the
+    # reference's box mean was rounded at
+    ulp = np.spacing(np.abs(ref[:, nb:]) + np.float32(128.0))
+    assert np.all(np.abs(ours[:, nb:] - ref[:, nb:]) <= ulp)
+    want = np.asarray(jeng.pixels_to_scan(
+        jnp.asarray(img), lay, jeng.qtables_for_quality(quality)[1]))
+    got = transform_plain(x, plan.layout, plan.kdct, plan.q)[0].numpy()
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("hs,vs", [(1, 1), (2, 1), (2, 2)])
+def test_box_mean_is_the_row_major_sum(hs, vs):
+    """box_mean adds the vs x hs samples in row-major order, one rounding per
+    add, then scales by the exact 1 / (hs*vs): equal to that sum written out
+    in numpy float32 and to the reference's subsample, bit for bit, on
+    samples whose sums do round (BT.601 outputs are not integers)."""
+    from jpgenc_tpu.ops.color import subsample
+    from jpgenc_tpu_torch.ops.cuda.k1_dct import box_mean
+    plane = (np.random.default_rng(5).random((2, 32, 48)) * 255
+             ).astype(np.float32)
+    out = box_mean(torch.from_numpy(plane), hs, vs).numpy()
+    p = plane.reshape(2, 32 // vs, vs, 48 // hs, hs)
+    want = None
+    for i in range(vs):
+        for j in range(hs):
+            want = p[:, :, i, :, j] if want is None else \
+                want + p[:, :, i, :, j]
+    want = want * np.float32(1.0 / (hs * vs))
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(out, want)
+    for n in range(2):
+        np.testing.assert_array_equal(
+            out[n], np.asarray(subsample(jnp.asarray(plane[n]), hs, vs)))
 
 
 def test_packed_tables_and_luts_equal_reference():

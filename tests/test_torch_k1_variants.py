@@ -4,10 +4,12 @@ same numpy inputs (literal seeds):
 
 (d) the repack variant (`_dense_kernel` in the reference): frames one MCU
     row past the reference's row gate go through its `_dense_kernel` branch;
-    the port takes "repack" for the same frames. Same dense f32 operator on
-    both sides, summed by two matmul libraries: the knife-edge policy of
-    k1_dct.py:18-24 (|diff| <= 1 on at most max(1e-4, 2/size) of the
-    coefficients).
+    the port takes "repack" for the same frames. The reference multiplies by
+    its dense operator, the port runs the shared per-block transform: the
+    knife-edge policy of k1_dct.py:18-24 (|diff| <= 1 on at most
+    max(1e-4, 2/size) of the coefficients). Against the reference's own
+    path off the TPU, engine.pixels_to_scan, the wide frames give 0
+    differing coefficients.
 (e) the separable variant (`_color_kernel`): `color_plain` against the
     reference with its module switch `K1_DENSE` set to False at run time;
     the operators (`build_operators`, `_subsample_matrix`) exact, the
@@ -47,7 +49,7 @@ def _knife_edge(ours, ref):
 
 def _plan(h, w, sub, quality=75, dri=0):
     plan = engine.get_plan(h, w, sub, quality, "cpu", dri)
-    return plan, (plan.layout, plan.m, plan.bias, plan.q)
+    return plan, (plan.layout, plan.kdct, plan.q)
 
 
 # --- (d) the repack variant ---------------------------------------------------
@@ -69,11 +71,14 @@ def test_wide_frame_vs_dense_kernel_interpret(h, w, sub, monkeypatch):
     zz = k1_dct.fused_pixels_to_scan(torch.from_numpy(img)[None], *ops)
     assert tuple(zz.shape) == (1,) + ref.shape and zz.dtype == torch.int16
     _knife_edge(zz[0].numpy(), ref)
+    np.testing.assert_array_equal(zz[0].numpy(), np.asarray(
+        jeng.pixels_to_scan(jnp.asarray(img), lay,
+                            jeng.qtables_for_quality(75)[1])))
 
 
 def test_mcu_bytes_is_the_reference_word_repack():
-    """The port's MCU repack viewed as int32 equals mcu_pack_words, so its
-    bytes in memory order are the dense operator's 'natural' basis."""
+    """The port's MCU repack viewed as int32 equals mcu_pack_words: each
+    MCU's bytes in memory order, what the repack kernel's loader reads."""
     from jpgenc_tpu.ops import color as jcolor
     for h, w, sub in [(40, 56, "420"), (24, 62, "422"), (16, 30, "444")]:
         img = synth_frame(h, w, seed=2)

@@ -2,8 +2,10 @@
 run in interpret mode, on the same numpy inputs.
 
 - transform_plain vs k1_dct.fused_pixels_to_scan: the knife-edge policy of
-  k1_dct.py:18-24 (|diff| <= 1 on at most 1e-4 of the coefficients; both
-  are the same dense f32 operator, summed in different orders);
+  k1_dct.py:18-24 (|diff| <= 1 on at most 1e-4 of the coefficients: the
+  reference multiplies by its dense operator, the port runs the shared
+  per-block transform), and vs jpgenc_tpu.engine.pixels_to_scan, the same
+  formulation: 0 differing coefficients;
 - entropy_plain on the JAX zz vs slot_metadata + fused_block_pack: bit for
   bit, including overflowing blocks;
 - pixels_to_pack_plain vs fused_pixels_to_pack: bit for bit, colour and
@@ -36,7 +38,7 @@ KNIFE_EDGE_FRAC = 1e-4
 def _setup(h, w, sub, quality=75):
     lay = make_layout(h, w, sub, 0)
     plan = engine.get_plan(h, w, sub, quality, "cpu")
-    return lay, plan, (lay, plan.m, plan.bias, plan.q), \
+    return lay, plan, (lay, plan.kdct, plan.q), \
         (plan.ac_rows, plan.dc_rows, plan.misc)
 
 
@@ -58,6 +60,11 @@ def test_transform_plain_vs_k1_interpret(h, w, sub, quality):
     d = np.abs(zz.reshape(-1, 64).numpy() - ref)
     assert d.max() <= 1
     assert (d > 0).mean() <= KNIFE_EDGE_FRAC
+    from jpgenc_tpu.engine import pixels_to_scan
+    np.testing.assert_array_equal(
+        zz.reshape(-1, 64).numpy(),
+        np.asarray(pixels_to_scan(jnp.asarray(img), lay,
+                                  qtables_for_quality(quality)[1])))
 
 
 @functools.lru_cache(maxsize=8)

@@ -81,7 +81,7 @@ def test_k1a_and_k1_vs_pallas_interpret(h, w, mode, dri):
     ref_buf, ref_bits = np.asarray(ref_buf), np.asarray(ref_bits)
 
     plan = engine.get_plan(h, w, mode, 75, "cpu", dri)
-    ops = (plan.layout, plan.m, plan.bias, plan.q)
+    ops = (plan.layout, plan.kdct, plan.q)
     x = torch.from_numpy(img)[None]
     s_pad = lay.n_segments * lay.blocks_per_segment
     zz = k1_dct.fused_pixels_to_scan(x, *ops)
@@ -108,7 +108,7 @@ def test_k1a_and_k1_vs_pallas_interpret(h, w, mode, dri):
 def test_batch_with_restart_interval_is_per_image(mode, dri):
     imgs = np.stack([_image(40, 72, mode, seed=s) for s in (1, 2, 3)])
     plan = engine.get_plan(40, 72, mode, 75, "cpu", dri)
-    ops = (plan.layout, plan.m, plan.bias, plan.q)
+    ops = (plan.layout, plan.kdct, plan.q)
     buf, bits = k1a_fused.fused_pixels_to_pack(torch.from_numpy(imgs), *ops,
                                                plan.standard_tables, 8)
     for i in range(3):
