@@ -42,7 +42,10 @@ boundary. The files' bits per pixel must stay within 1e-4 of the values
 recorded before that transform replaced the dense operator. Decoded
 pixels equal the reconstruction kernel's on the encoder's own coefficients
 exactly, and the kernel is held against its plain version (max |diff| <= 1
-on fewer than 1e-3 of the bytes) and the float64 reference (max |diff| <= 3).
+on fewer than 1e-3 of the bytes) and the float64 reference (max |diff| <= 3)
+on the encoder's coefficients in four modes, at one small odd size each,
+and on an input of the same shapes with every coefficient nonzero (the
+kernels leave out zero terms; that input times them with none left out).
 
 Every phase either passes or exits non-zero; nothing falls back to the CPU,
 to a plain version or to a Python finalize. Each earlier stdout line is one
@@ -784,6 +787,42 @@ def main() -> None:
               "odd_61x130_mismatch_frac": sfrac,
               "vs_float64_max_abs": d64, "where_they_differ": nearer,
               "reconstruct_ref_s": round(ref_s, 2)})
+    # the bench input's sparsity as the products see it: a warp walks the
+    # union of its 8 blocks' nonzero coefficients
+    bench_terms = {m: recon.product_terms(recon_in[m][1], recon_in[m][0])
+                   for m in ("420", "gray")}
+    emit({"phase": "recon_bench_terms", **bench_terms})
+    # the same shapes with every coefficient nonzero (+-1..3, quant 4..12):
+    # the products with no term left out
+    dense_in = {}
+    for mode in ("420", "gray"):
+        lay_ = recon_in[mode][0]
+        dx, dqt = fixtures.dense_coefficients(
+            n_img, lay_.mcus_y, lay_.mcus_x, lay_.blocks_per_mcu * 64, 6)
+        per_comp = [dqt[0]] if lay_.is_gray else [dqt[0], dqt[1], dqt[1]]
+        dx4 = torch.from_numpy(dx).to(dev)
+        dq = torch.from_numpy(np.repeat(decoder._q_rows(lay_, per_comp),
+                                        n_img, axis=0)).to(dev)
+        out = recon.fused_recon_rgb(dx4, dq, lay_)
+        torch.cuda.synchronize()
+        mx_, frac = pixel_edge(out, recon.recon_plain(dx4, dq, lay_),
+                               f"recon {mode} all-nonzero vs plain")
+        ref0 = ref_decoder.reconstruct_ref(
+            lay_, raster(dx[0].astype(np.int32), lay_), per_comp)
+        d64 = int(np.abs(out[0].cpu().numpy().astype(int)
+                         - ref0.astype(int)).max())
+        if d64 > 3:
+            fail(f"recon {mode} all-nonzero vs float64: max |diff| {d64}")
+        terms = recon.product_terms(dx4, lay_)
+        if terms["terms_per_sample"] != 64:
+            fail(f"recon {mode} all-nonzero input has zeros: {terms}")
+        dense_in[mode] = (lay_, dx4, dq)
+        emit({"phase": "recon_all_nonzero", "mode": mode,
+              "shape": list(dx4.shape), "vs_plain_max_abs": mx_,
+              "vs_plain_mismatch_frac": frac, "vs_float64_max_abs": d64,
+              "clamped_frac": float(((out == 0) | (out == 255))
+                                    .double().mean())})
+        del out, dx
     recon_out = {m: recon_out[m] for m in ("420", "gray")}
     for m in ("422", "444"):
         del recon_in[m]
@@ -986,6 +1025,12 @@ def main() -> None:
     glay_, gx4_, gq_ = recon_in["gray"]
     grecon_ms = sync_ms(lambda: recon.fused_recon_rgb(gx4_, gq_, glay_), 20)
     grecon_plain_ms = sync_ms(lambda: recon.recon_plain(gx4_, gq_, glay_), 3)
+    dlay_, dx4_, dq_ = dense_in["420"]
+    recon_dense_ms = sync_ms(lambda: recon.fused_recon_rgb(dx4_, dq_, dlay_),
+                             20)
+    gdlay_, gdx4_, gdq_ = dense_in["gray"]
+    grecon_dense_ms = sync_ms(
+        lambda: recon.fused_recon_rgb(gdx4_, gdq_, gdlay_), 20)
     torch.cuda.synchronize()
 
     # --- phase 14: restart intervals -----------------------------------------
@@ -1494,8 +1539,12 @@ def main() -> None:
     # counted likewise: per block one multiply per coefficient, the 16
     # eight-point passes and 3 per sample for + 128, round and clamp; per
     # pixel 12 for the chroma taps, 8 for the colour matrix and 6 for three
-    # rounds and clamps. Its own figure is what csrc/recon.cu spends: a
-    # 64-term dot product per sample, the tile's halo included. The repack
+    # rounds and clamps. Its own figure is what csrc/recon.cu spends on the
+    # all-nonzero input: 64 terms for each of a thread's 16 samples, every
+    # thread of a tile (the own blocks' groups, the group of the left and
+    # right neighbours, and two position quads of each halo-row group);
+    # own_flop_ms_bench is the own blocks' products on the bench input,
+    # where a warp runs only the union of its blocks' nonzero terms. The repack
     # kernel is bounded at the wide frames' shape, its main path's (the image
     # read once: the repack is the function's own intermediate); the
     # separable kernel's own figure is its 64-term luma and nb*64-term chroma
@@ -1527,11 +1576,12 @@ def main() -> None:
     rec_ops = float(n_img * n_mcu) * (lay.blocks_per_mcu * rec_blk
                                       + 26 * px_mcu)
     grec_ops = float(gslots) * (rec_blk + 3 * 64)
-    tiles = n_img * lay.mcus_y * -(-lay.mcus_x // 8)
-    rec_dense = 2.0 * 64 * (64 * slots + tiles * 2 * (2 * 66 + 16)
-                            - n_img * lay.mcus_y * 2 * 2 * 8 *
-                            (-lay.mcus_x % 8))
-    grec_dense = 2.0 * 64 * 64 * gslots
+    tiles = n_img * lay.mcus_y * -(-lay.mcus_x // recon.TILE)
+    g_top = -(-recon.TILE * lay.blocks_per_mcu // 4) + 1
+    g_row = -(-2 * (recon.TILE + 2) // 4)
+    rec_dense = 2.0 * 64 * 16 * tiles * (16 * g_top + 4 * g_row)
+    gtiles = n_img * glay.mcus_y * -(-glay.mcus_x // recon.GRAY_TILE)
+    grec_dense = 2.0 * 64 * 16 * gtiles * 4 * recon.GRAY_TILE
     mcu_ops = 15 * px_mcu + sub_ops + lay.blocks_per_mcu * dct_ops
     nb_y = lay.blocks_per_mcu - 2
     sep_b = 4 * ((1 + nb_y) * 64 * 64 + l_out)
@@ -1634,18 +1684,25 @@ def main() -> None:
          "replaces": "jpgenc_tpu/ops/pallas/recon.py:279",
          "launches": dec_launches["recon"],
          "max_abs_err": recon_err["420"], "tolerance": px_tol,
-         "ms": round(recon_ms, 4), "plain_ms": round(recon_plain_ms, 4),
+         "ms": round(recon_ms, 4), "ms_all_nonzero": round(recon_dense_ms, 4),
+         "plain_ms": round(recon_plain_ms, 4),
          **bound(slots * 128 + n_img * l_out * 4 + 4 * 4096
                  + recon_out["420"].numel(), rec_ops, rec_dense),
+         "own_flop_ms_bench": round(2.0 * bench_terms["420"]["fmas"]
+                                    / F32_FLOP_PER_S * 1e3, 4),
          "library_ms": None},
         {"name": "recon_gray", "route": "cuda",
          "source": "jpgenc_tpu_torch/csrc/recon.cu",
          "replaces": "jpgenc_tpu/ops/pallas/recon.py:246",
          "launches": dec_gray_launches["recon_gray"],
          "max_abs_err": recon_err["gray"], "tolerance": px_tol,
-         "ms": round(grecon_ms, 4), "plain_ms": round(grecon_plain_ms, 4),
+         "ms": round(grecon_ms, 4),
+         "ms_all_nonzero": round(grecon_dense_ms, 4),
+         "plain_ms": round(grecon_plain_ms, 4),
          **bound(gslots * 128 + n_img * 64 * 4 + 4 * 4096
                  + recon_out["gray"].numel(), grec_ops, grec_dense),
+         "own_flop_ms_bench": round(2.0 * bench_terms["gray"]["fmas"]
+                                    / F32_FLOP_PER_S * 1e3, 4),
          "library_ms": None},
     ]})
     print(card, flush=True)

@@ -24,9 +24,9 @@ SHAPES = ((16, 1080, 1920), (2, 2048, 16384))
 TILE_KERNELS = ("k1a_kernel", "k1_kernel", "k1_repack_kernel")
 
 
-def ptxas_report(log: str) -> list[str]:
-    """'<entry>: <registers, spills>' for the kernels that depend on the
-    tile, from nvcc's -Xptxas=-v output."""
+def ptxas_report(log: str, kernels=TILE_KERNELS) -> list[str]:
+    """'<entry>: <registers, spills>' for the named kernels (by default
+    those that depend on the tile), from nvcc's -Xptxas=-v output."""
     out, entry, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -34,7 +34,7 @@ def ptxas_report(log: str) -> list[str]:
         elif "spill" in ln:
             spill = ln.split(":", 1)[-1].strip()
         elif "Used" in ln and entry:
-            if any(k in entry for k in TILE_KERNELS):
+            if any(k in entry for k in kernels):
                 out.append(f"{entry}: {ln.split(':', 1)[-1].strip()}; "
                            f"{spill}")
             entry = None

@@ -3,8 +3,9 @@
 
 `fused_recon_rgb` launches the CUDA kernels in `csrc/recon.cu` for a CUDA
 tensor (colour: the kernel that replaces the inner `kernel` of
-`_make_kernel`; gray: the one that replaces `_gray_kernel`) and takes the
-plain version `recon_plain` only for a CPU tensor:
+`_make_kernel`, recon.py:279; gray: the one that replaces `_gray_kernel`,
+recon.py:246) and takes the plain version `recon_plain` only for a CPU
+tensor:
 
   dequantize in zigzag order -> coef @ KIDCT_ZZ + 128 -> round half to even
   and clamp to [0, 255] per component sample (the T.81 range limit, chroma
@@ -15,7 +16,17 @@ The input is the MCU-major tensor [B, mcus_y, mcus_x, L] int16, L =
 blocks_per_mcu * 64 (luma blocks row-major, then Cb, Cr; zigzag order within
 a block): JPEG's interleaved scan-position space, which the decoder's
 densify scatter fills directly. q_rows is [B, L] float32, the quant tables
-in the same lane order (`decoder._q_rows`).
+in the same lane order (`decoder._q_rows`). Both must be 16-byte aligned
+(the kernels read them 16 bytes at a time): every tensor torch allocates is.
+
+The kernels hold four blocks' dequantized coefficients in shared memory and
+give each thread 4 positions of 4 blocks, so a warp reads the operator row
+and the coefficients once per 16 FMAs; a warp walks only the coefficients
+that are nonzero in one of its 8 blocks (`product_terms` counts them). On
+dense coefficients the FMAs and the loop's bookkeeping bound them, on sparse
+ones the fixed work per block (load, stores, colour stage); PERF.md holds
+the times. Leaving out a zero term is exact (csrc/recon.cu says why), so
+each sample is the kernel's 64-term __fmaf_rn chain in k order.
 
 The kernel and the plain version run the same float32 operations except for
 the order of the 64-term IDCT sum (a matmul in the plain version), so pixels
@@ -42,6 +53,11 @@ launches_gray = 0
 plain_calls = 0
 
 _KERNEL_MODES = ((1, 1), (2, 1), (2, 2))
+
+#: the kernels' tiles (csrc/recon.cu kTile, kGrayTile): MCUs, and gray
+#: blocks, a thread block; a warp's products serve 8 consecutive blocks of
+#: a tile
+TILE, GRAY_TILE, WARP_BLOCKS = 16, 64, 8
 
 
 def recon_applicable(layout) -> bool:
@@ -119,9 +135,46 @@ def recon_plain(x4: torch.Tensor, q_rows: torch.Tensor, layout
     return pixels_from_scan(x4, q_rows, layout)
 
 
+def product_terms(x4: torch.Tensor, layout) -> dict:
+    """How many product terms the kernels run on these coefficients, for the
+    tile's own blocks (the halo left out): `nonzero_frac`, the share of
+    nonzero coefficients; `terms_per_block`, the mean nonzero coefficients a
+    block; `terms_per_sample`, the mean terms of a sample as the kernels run
+    them: each warp walks the nibbles (4 consecutive k) that hold a nonzero
+    coefficient of one of its 8 blocks (a tile's blocks in scan order, the
+    last warp padded with empty slots); `fmas`, what the warps spend: terms
+    x 8 slots x 64 positions, summed. All four are exact counts on x4's
+    device."""
+    b, my, mx, lanes = x4.shape
+    nb2 = lanes // 64
+    tile = GRAY_TILE if layout.is_gray else TILE
+    nz = (x4 != 0).reshape(b, my, mx, nb2, 64)
+    real = torch.ones((b, my, mx, nb2), dtype=torch.bool, device=x4.device)
+    pad_mcu = -mx % tile
+    pad_slot = -(tile * nb2) % WARP_BLOCKS
+
+    def warps(t):
+        t = torch.cat([t, t.new_zeros((b, my, pad_mcu) + t.shape[3:])], 2)
+        t = t.reshape((b, my, (mx + pad_mcu) // tile, tile * nb2)
+                      + t.shape[4:])
+        t = torch.cat([t, t.new_zeros((b, my, t.shape[2], pad_slot)
+                                      + t.shape[4:])], 3)
+        return t.reshape((b, my, t.shape[2], -1, WARP_BLOCKS) + t.shape[4:])
+
+    union = warps(nz).any(dim=-2)                       # [.., warps, 64]
+    terms = 4 * union.reshape(union.shape[:-1] + (16, 4)).any(-1).sum(-1)
+    blocks = warps(real).sum(dim=-1)                    # real blocks a warp
+    n_blocks = b * my * mx * nb2
+    return {"nonzero_frac": int(nz.sum()) / (n_blocks * 64),
+            "terms_per_block": int(nz.sum()) / n_blocks,
+            "terms_per_sample": int((terms * blocks).sum()) / n_blocks,
+            "fmas": int(terms.sum()) * WARP_BLOCKS * 64}
+
+
 def check_operands(x4: torch.Tensor, q_rows: torch.Tensor, layout) -> None:
     """Raise unless x4 and q_rows are what the kernels take for this
-    layout: contiguous, on one device, of the expected type and shape."""
+    layout: contiguous, 16-byte aligned, on one device, of the expected
+    type and shape."""
     if not recon_applicable(layout):
         raise ValueError(
             f"no reconstruction kernel for sampling {layout.subsampling!r} "
@@ -142,6 +195,9 @@ def check_operands(x4: torch.Tensor, q_rows: torch.Tensor, layout) -> None:
         raise ValueError(f"q_rows {tuple(q_rows.shape)} {q_rows.dtype} "
                          f"{q_rows.device}: expected contiguous "
                          f"{(x4.shape[0], lanes)} float32 on {x4.device}")
+    if x4.data_ptr() % 16 or q_rows.data_ptr() % 16:
+        raise ValueError("x4 and q_rows must start on a 16-byte boundary "
+                         "(the kernels read them 16 bytes at a time)")
 
 
 def fused_recon_rgb(x4: torch.Tensor, q_rows: torch.Tensor, layout

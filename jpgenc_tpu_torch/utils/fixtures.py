@@ -26,3 +26,18 @@ def synth_frame(h: int, w: int, channels: int = 3,
 def synth_batch(h: int, w: int, b: int, channels: int = 3) -> np.ndarray:
     return np.stack([synth_frame(h, w, channels, seed=7 + i)
                      for i in range(b)])
+
+
+
+def dense_coefficients(b: int, my: int, mx: int, lanes: int, seed: int
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Reconstruction input with every coefficient nonzero (this port's own;
+    the reference has no such fixture): x4 [b, my, mx, lanes] int16 of
+    +-1..+-3 and two natural-order quant tables [2, 64] int32 (luma,
+    chroma) of 4..12, which keep most samples off the clamps of [0, 255].
+    Photographs at Q75 code at 1-3 bpp, far denser than synth_frame's 0.2;
+    this input times the products with no term left out."""
+    rng = np.random.default_rng(seed)
+    mag = rng.integers(1, 4, (b, my, mx, lanes), dtype=np.int16)
+    x4 = np.where(rng.random((b, my, mx, lanes)) < 0.5, -mag, mag)
+    return x4.astype(np.int16), rng.integers(4, 13, (2, 64)).astype(np.int32)

@@ -420,6 +420,117 @@ def test_recon_kernel_batch_equals_single_images(cuda, sub, h, w):
         assert torch.equal(out[i], one[0])
 
 
+def _x4_case(sub, h, w, fill, seed, batch=2):
+    """An MCU-major reconstruction input made by fill(rng, lay, shape) ->
+    int values [B, my, mx, L]; quant tables 1..40 per component. Returns
+    (layout, x4, q_rows) on the CPU and (raster blocks, per-component
+    natural-order tables) for the float64 reference."""
+    lay = make_layout(h, w, sub)
+    rng = np.random.default_rng(seed)
+    shape = (batch, lay.mcus_y, lay.mcus_x, lay.blocks_per_mcu * 64)
+    x4 = np.clip(fill(rng, lay, shape), -32768, 32767).astype(np.int16)
+    tabs = rng.integers(1, 41, (2, 64)).astype(np.int32)
+    per_comp = [tabs[0]] if lay.is_gray else [tabs[0], tabs[1], tabs[1]]
+    q_rows = np.repeat(D._q_rows(lay, per_comp), batch, axis=0)
+    blocks = np.empty((batch, lay.n_scan, 64), np.int32)
+    blocks[:, np.asarray(lay.scan_flat)] = x4.reshape(batch, -1, 64)
+    return (lay, torch.from_numpy(x4), torch.from_numpy(q_rows), blocks,
+            per_comp)
+
+
+def _hold_recon(cuda, case):
+    """The kernel against recon_plain (the pixel parity) and every image
+    against the float64 reference (<= 3), with one launch and no plain
+    call."""
+    lay, x4, q_rows, blocks, per_comp = case
+    x4, q_rows = x4.to(cuda), q_rows.to(cuda)
+    before = (recon.launches + recon.launches_gray, recon.plain_calls)
+    out = recon.fused_recon_rgb(x4, q_rows, lay)
+    torch.cuda.synchronize()
+    assert (recon.launches + recon.launches_gray, recon.plain_calls) == \
+        (before[0] + 1, before[1])
+    _pixel_parity(out, recon.recon_plain(x4, q_rows, lay))
+    for i in range(x4.shape[0]):
+        ref = ref_decoder.reconstruct_ref(lay, blocks[i], per_comp)
+        d = np.abs(out[i].cpu().numpy().astype(int) - ref.astype(int))
+        assert d.max() <= 3
+    return out
+
+
+def _only(ks):
+    """Blocks whose only nonzero coefficients are those of ks."""
+    def fill(rng, lay, shape):
+        x = np.zeros(shape, np.int64).reshape(shape[:3] + (-1, 64))
+        for k in ks:
+            x[..., k] = rng.integers(-60, 61, x.shape[:-1])
+        return x.reshape(shape)
+    return fill
+
+
+RECON_FILLS = {
+    "all_zero": lambda rng, lay, shape: np.zeros(shape, np.int64),
+    "dc_only": _only([0]),
+    "k63_only": _only([63]),
+    "all_nonzero": lambda rng, lay, shape: rng.integers(1, 4, shape)
+    * rng.choice([-1, 1], shape),
+    "clamps": lambda rng, lay, shape: np.where(
+        np.arange(shape[-1]) % 64 == 0, rng.choice([-2000, 2000], shape),
+        rng.integers(-300, 301, shape)),
+}
+
+
+@pytest.mark.parametrize("fill", list(RECON_FILLS))
+@pytest.mark.parametrize("sub,h,w", [("420", 61, 130), ("422", 47, 250),
+                                     ("444", 9, 71), ("gray", 100, 257)])
+def test_recon_kernel_on_structured_blocks(cuda, sub, h, w, fill):
+    """Zero terms left out: all-zero blocks, DC only, only the last
+    coefficient, no zero at all, and samples far past both clamps."""
+    out = _hold_recon(cuda, _x4_case(sub, h, w, RECON_FILLS[fill],
+                                     sum(map(ord, fill)) + h))
+    if fill == "all_zero":
+        assert int(out.min()) == int(out.max()) == 128
+    if fill == "clamps":
+        assert int(out.min()) == 0 and int(out.max()) == 255
+
+
+@pytest.mark.parametrize("r", range(16))
+@pytest.mark.parametrize("sub", ["420", "422", "444", "gray"])
+def test_recon_kernel_at_every_residue(cuda, sub, r):
+    """Heights and widths at every residue mod 16, widths whose MCU count
+    is no multiple of the kernels' tiles (recon.TILE, recon.GRAY_TILE)."""
+    h, w = 17 + r, 130 + 17 * r + (300 if sub == "gray" else 0)
+    out = _hold_recon(cuda, _x4_case(
+        sub, h, w, lambda rng, lay, shape: rng.integers(-40, 41, shape)
+        * (rng.random(shape) < 0.3), 500 + r))
+    assert out.shape[1:3] == (h, w)
+
+
+def _halo_pattern(pattern, dense_first):
+    """4:2:0 MCUs alternately dense and all zero: a checkerboard, the halves
+    of a tile, or whole MCU rows, so that a halo neighbour is all zero
+    while its owner is dense (dense_first) or the reverse."""
+    def fill(rng, lay, shape):
+        i = np.arange(shape[1])[:, None]
+        j = np.arange(shape[2])[None, :]
+        on = {"checker": (i + j) % 2 == 0,
+              "tile_halves": (j // (recon.TILE // 2)) % 2 == 0,
+              "rows": i % 2 == 0}[pattern]
+        on = on if dense_first else ~on
+        x = rng.integers(-50, 51, shape)
+        return x * on[None, :, :, None]
+    return fill
+
+
+@pytest.mark.parametrize("dense_first", [True, False])
+@pytest.mark.parametrize("pattern", ["checker", "tile_halves", "rows"])
+@pytest.mark.parametrize("sub", ["420", "422"])
+def test_recon_kernel_halo_beside_zero_neighbours(cuda, sub, pattern,
+                                                  dense_first):
+    _hold_recon(cuda, _x4_case(sub, 64, 2 * 16 * recon.TILE + 40,
+                               _halo_pattern(pattern, dense_first),
+                               7 + dense_first))
+
+
 def _decode_file(mode, h, w, seed, quality=75, dri=0, optimize=False):
     img = _frame(h, w, mode, seed)
     return ref_encoder.encode(img, quality, "420" if mode == "gray" else mode,

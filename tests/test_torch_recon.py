@@ -155,7 +155,7 @@ def test_recon_applicable_gate(h, w, sub, dri, takes):
 
 
 @pytest.mark.parametrize("what", ["dtype", "shape", "strides", "q_shape",
-                                  "q_dtype", "device"])
+                                  "q_dtype", "device", "misaligned"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(what):
     lay = make_layout(32, 48, "420")
     x4 = torch.zeros((2, 2, 3, 384), dtype=torch.int16)
@@ -170,6 +170,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(what):
         q = q[:1]
     elif what == "q_dtype":
         q = q.double()
+    elif what == "misaligned":          # contiguous, but 2 bytes past 16
+        x4 = torch.zeros(x4.numel() + 1, dtype=torch.int16)[1:].view(
+            x4.shape)
+        assert x4.is_contiguous() and x4.data_ptr() % 16
     if what == "device":
         with pytest.raises(ValueError, match="unsupported device"):
             recon.fused_recon_rgb(x4.to("meta"), q.to("meta"), lay)
@@ -244,3 +248,90 @@ def test_build_compiles_recon_and_names_the_library_by_its_sources(
     (src / "recon.cu").unlink()
     without = build.library_path()
     assert len({whole, changed, without}) == 3
+
+
+def _product_terms_numpy(x4, layout):
+    """product_terms counted block by block with loops: a tile's blocks in
+    scan order, 8 to a warp, each warp's terms 4 for every nibble of k that
+    holds a nonzero coefficient of one of its blocks."""
+    b, my, mx, lanes = x4.shape
+    nb2 = lanes // 64
+    tile = recon.GRAY_TILE if layout.is_gray else recon.TILE
+    nz = x4.reshape(b, my, mx, nb2, 64) != 0
+    terms_sum = fmas = 0
+    for img in range(b):
+        for i in range(my):
+            for x0 in range(0, mx, tile):
+                blocks = [nz[img, i, m, k] for m in range(x0, min(x0 + tile, mx))
+                          for k in range(nb2)]
+                for w0 in range(0, len(blocks), recon.WARP_BLOCKS):
+                    warp = blocks[w0:w0 + recon.WARP_BLOCKS]
+                    union = np.logical_or.reduce(warp)
+                    n = 4 * sum(union[k:k + 4].any() for k in range(0, 64, 4))
+                    terms_sum += n * len(warp)
+                    fmas += n * recon.WARP_BLOCKS * 64
+    n_blocks = b * my * mx * nb2
+    return {"nonzero_frac": int(nz.sum()) / (n_blocks * 64),
+            "terms_per_block": int(nz.sum()) / n_blocks,
+            "terms_per_sample": terms_sum / n_blocks, "fmas": fmas}
+
+
+@pytest.mark.parametrize("sub,h,w,density", [
+    ("420", 61, 130, 0.05), ("420", 16, 272, 0.5), ("422", 47, 250, 0.02),
+    ("444", 9, 71, 0.1), ("gray", 61, 130, 0.03), ("gray", 17, 520, 1.0)])
+def test_product_terms_counts_like_numpy(sub, h, w, density):
+    """The helper that reports the kernels' product terms equals a count
+    made block by block, on sparse inputs with widths that are not a
+    multiple of the tile and on an input with every coefficient set."""
+    lay = make_layout(h, w, sub)
+    lanes = lay.blocks_per_mcu * 64
+    rng = np.random.default_rng(int(density * 1000) + h + w)
+    x4 = (rng.integers(-5, 6, (2, lay.mcus_y, lay.mcus_x, lanes))
+          * (rng.random((2, lay.mcus_y, lay.mcus_x, lanes)) < density)
+          ).astype(np.int16)
+    if density == 1.0:
+        x4[x4 == 0] = 1
+    got = recon.product_terms(torch.from_numpy(x4), lay)
+    want = _product_terms_numpy(x4, lay)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert 0 <= got["terms_per_block"] <= got["terms_per_sample"] <= 64
+    if density == 1.0:
+        assert got["terms_per_sample"] == 64 and got["nonzero_frac"] == 1
+
+
+def test_tiles_are_the_kernel_sources_defaults():
+    """recon.TILE and GRAY_TILE, which product_terms mirrors, are the
+    defaults csrc/recon.cu compiles with."""
+    import os
+    import re
+
+    from jpgenc_tpu_torch.kernels import build
+    src = open(os.path.join(build._CSRC, "recon.cu")).read()
+    tiles = dict(re.findall(r"#define (JPGENC_RECON_\w*TILE) (\d+)", src))
+    assert int(tiles["JPGENC_RECON_TILE"]) == recon.TILE
+    assert int(tiles["JPGENC_RECON_GRAY_TILE"]) == recon.GRAY_TILE
+
+
+@pytest.mark.parametrize("lanes", [64, 256, 384])
+def test_dense_coefficients_fixture(lanes):
+    """Every coefficient nonzero, |value| 1..3, quant 4..12, deterministic
+    in its seed; the plain reconstruction of it stays off the clamps."""
+    from jpgenc_tpu_torch.utils import fixtures
+    x4, qts = fixtures.dense_coefficients(2, 3, 5, lanes, 11)
+    assert x4.shape == (2, 3, 5, lanes) and x4.dtype == np.int16
+    assert qts.shape == (2, 64) and qts.min() >= 4 and qts.max() <= 12
+    assert (x4 != 0).all() and np.abs(x4).max() <= 3
+    again = fixtures.dense_coefficients(2, 3, 5, lanes, 11)
+    assert np.array_equal(again[0], x4) and np.array_equal(again[1], qts)
+    sub = {64: "gray", 256: "422", 384: "420"}[lanes]
+    lay = make_layout(3 * 8 * (2 if sub == "420" else 1),
+                      5 * 8 * (1 if sub == "gray" else 2), sub)
+    per_comp = [qts[0]] if sub == "gray" else [qts[0], qts[1], qts[1]]
+    q_rows = np.repeat(D._q_rows(lay, per_comp), 2, axis=0)
+    px = recon.recon_plain(torch.from_numpy(x4), torch.from_numpy(q_rows),
+                           lay)
+    assert float(((px == 0) | (px == 255)).double().mean()) < 0.01
+    blocks = np.empty((lay.n_scan, 64), np.int32)
+    blocks[np.asarray(lay.scan_flat)] = x4[1].reshape(-1, 64)
+    ref = reconstruct_ref(lay, blocks, per_comp)
+    assert np.abs(px[1].numpy().astype(int) - ref.astype(int)).max() <= 3
