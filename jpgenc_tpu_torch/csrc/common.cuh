@@ -11,13 +11,14 @@
 //    BT.601 per pixel, box-mean subsample, level shift, then every 8x8 block
 //    times KDCT_ZZ [64, 64], divide, round half away. 24 576 FMAs per 4:2:0
 //    MCU instead of the dense operator's 294 912, and the one operand is
-//    16 KB, so it lives in shared memory. Gray: gray_tile_transform, the
-//    same block product on (x - 128). An image can be coded by K1A (no
-//    optimize) and by K1 + kernel A (optimize), and the capacity ladder may
-//    switch between them, so the per-coefficient float sequence is ONE
-//    function (convert_* then tile_product): every product and sum is an
-//    explicit _rn intrinsic, so no contraction choice can differ between
-//    call sites; the division is a true division, never a reciprocal
+//    16 KB, so it lives in shared memory. Gray (gray K1A, gray K1): the
+//    same block product on (x - 128), gray_tile_product. An image can be
+//    coded by K1A (no optimize) and by K1 + kernel A (optimize), and the
+//    capacity ladder may switch between them, so the per-coefficient float
+//    sequence is ONE function (convert_* then tile_product; gray: the loader
+//    then gray_tile_product; both run block_products): every product and sum
+//    is an explicit _rn intrinsic, so no contraction choice can differ
+//    between call sites; the division is a true division, never a reciprocal
 //    (jpgenc_tpu/ops/pallas/k1_dct.py:72-74).
 //  * the entropy coder: code_block, one warp per 8x8 block (T.81 F.1.2).
 //
@@ -27,7 +28,14 @@
 // a bytes bound of 0.06 ms: the rest is the products' shared-memory loads
 // (about 11 FMAs per 16-byte load), the quantizer's true divisions (one per
 // 64 FMAs, some ten instructions each) and the loaders' byte-to-float
-// conversion. PERF.md section 6 holds the measured times beside the bounds.
+// conversion. The gray transform, the same product with a plain loader:
+// gray K1 takes 0.153-0.1554 ms for 16 x 1080p gray (NVIDIA H100 80GB HBM3
+// at 700 W) against 0.0634 ms for its FMAs at the float32 peak and a bytes
+// bound of 0.0297. Its products issue 128 FMAs per 16 shared-memory
+// wavefronts, so by count the FMA pipe limits them, not the loads; the rest
+// (not measured apart) is the quantizer's 32 true divisions a thread, the
+// loader and the padding of a row's last tile (a 1080p row is 128 + 112
+// blocks). PERF.md section 6 holds the measured times beside the bounds.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,7 +97,7 @@ __device__ __forceinline__ int round_div(float x, float q) {
 //     FMAs. The 16 threads of a half-warp read one sample address (a
 //     broadcast) and 16 consecutive ks vectors, so neither operand has a bank
 //     conflict. Every accumulator is one __fmaf_rn chain from 0 with k
-//     ascending: the chain of gray_tile_transform and of dc_of_block.
+//     ascending (block_products): the chain of dc_of_block.
 //  3. The quantized values replace xs as int16 zq [T][(nb+2)*64]: the MCUs'
 //     coefficients in scan order, which is the layout of the output.
 //
@@ -359,10 +367,11 @@ inline bool aligned16(const void* p) {
 }
 
 // The widest load (16, 4 or 1 bytes) that every row of every image of a
-// contiguous [B, H, W, 3] u8 batch at img is aligned to.
-inline int load_alignment(const void* img, int W) {
+// contiguous u8 batch at img is aligned to, rows of pitch bytes: 3 * W for
+// [B, H, W, 3], W for gray [B, H, W].
+inline int load_alignment(const void* img, int pitch) {
   const uintptr_t a =
-      reinterpret_cast<uintptr_t>(img) | static_cast<uintptr_t>(3) * W;
+      reinterpret_cast<uintptr_t>(img) | static_cast<uintptr_t>(pitch);
   return a % 16 == 0 ? 16 : a % 4 == 0 ? 4 : 1;
 }
 
@@ -386,24 +395,18 @@ __device__ __forceinline__ int dc_of_block(const float* x, const float* ks,
   return round_div(acc, q0);
 }
 
-// Steps 4 and 5 on xs and ks as the loaders left them (the caller has
-// synchronised): the block products, then quantized int16 zq [T][L] in
-// place of xs (returned). q [L] f32, 16-byte aligned: the quantizer of every
-// coefficient of an MCU. Every thread of the block must call it; it
-// synchronises the block before it overwrites xs and before it returns.
-template <int HS, int VS>
-__device__ __forceinline__ int16_t* tile_product(float* xs, const float* ks,
-                                                 const float* __restrict__ q,
-                                                 int tid) {
-  using G = Geo<HS, VS>;
-  const int cg = tid & 15, bg = tid >> 4;
-  const int m0 = bg / G::NB2, blk = bg - m0 * G::NB2;
-  const float* xb = xs + m0 * G::STRIDE + blk * 64;
-  const float* kb = ks + 4 * cg;
-
-  float acc[kBpt][4];
+// The register tile of tile_product and gray_tile_product: coefficients
+// 4*cg..4*cg+3 (kb = ks + 4*cg) of the N blocks at xb, xb + STEP, ...,
+// each block's 64 samples contiguous and 16-byte aligned. Per four k, four
+// 16-byte ks reads and one 16-byte sample read per block: 4 + N shared loads
+// for 16 * N FMAs. Every accumulator is one __fmaf_rn chain from 0 with k
+// ascending: the chain of dc_of_block.
+template <int N, int STEP>
+__device__ __forceinline__ void block_products(const float* xb,
+                                               const float* kb,
+                                               float (&acc)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < kBpt; ++j)
+  for (int j = 0; j < N; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   // not unrolled: a second iteration's operands in flight would not fit
   // beside 40 accumulators in 80 registers, and it measured no faster
@@ -414,9 +417,8 @@ __device__ __forceinline__ int16_t* tile_product(float* xs, const float* ks,
     const float4 k2 = *reinterpret_cast<const float4*>(kb + (k + 2) * 64);
     const float4 k3 = *reinterpret_cast<const float4*>(kb + (k + 3) * 64);
 #pragma unroll
-    for (int j = 0; j < kBpt; ++j) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(xb + j * 4 * G::STRIDE + k);
+    for (int j = 0; j < N; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(xb + j * STEP + k);
       acc[j][0] = __fmaf_rn(x.x, k0.x, acc[j][0]);
       acc[j][1] = __fmaf_rn(x.x, k0.y, acc[j][1]);
       acc[j][2] = __fmaf_rn(x.x, k0.z, acc[j][2]);
@@ -435,19 +437,42 @@ __device__ __forceinline__ int16_t* tile_product(float* xs, const float* ks,
       acc[j][3] = __fmaf_rn(x.w, k3.w, acc[j][3]);
     }
   }
+}
+
+// Four accumulators / their quantizers qv, round half away, as four int16
+// at d (8-byte aligned).
+__device__ __forceinline__ void store_quantized(const float (&a)[4],
+                                                float4 qv, int16_t* d) {
+  const uint32_t v0 = static_cast<uint32_t>(round_div(a[0], qv.x));
+  const uint32_t v1 = static_cast<uint32_t>(round_div(a[1], qv.y));
+  const uint32_t v2 = static_cast<uint32_t>(round_div(a[2], qv.z));
+  const uint32_t v3 = static_cast<uint32_t>(round_div(a[3], qv.w));
+  *reinterpret_cast<uint2*>(d) =
+      make_uint2((v0 & 0xffffu) | (v1 << 16), (v2 & 0xffffu) | (v3 << 16));
+}
+
+// Steps 4 and 5 on xs and ks as the loaders left them (the caller has
+// synchronised): the block products, then quantized int16 zq [T][L] in
+// place of xs (returned). q [L] f32, 16-byte aligned: the quantizer of every
+// coefficient of an MCU. Every thread of the block must call it; it
+// synchronises the block before it overwrites xs and before it returns.
+template <int HS, int VS>
+__device__ __forceinline__ int16_t* tile_product(float* xs, const float* ks,
+                                                 const float* __restrict__ q,
+                                                 int tid) {
+  using G = Geo<HS, VS>;
+  const int cg = tid & 15, bg = tid >> 4;
+  const int m0 = bg / G::NB2, blk = bg - m0 * G::NB2;
+  float acc[kBpt][4];
+  block_products<kBpt, 4 * G::STRIDE>(xs + m0 * G::STRIDE + blk * 64,
+                                      ks + 4 * cg, acc);
   const float4 qv = __ldg(reinterpret_cast<const float4*>(q + blk * 64) + cg);
   __syncthreads();                               // xs becomes zq below
   int16_t* zq = reinterpret_cast<int16_t*>(xs);
 #pragma unroll
-  for (int j = 0; j < kBpt; ++j) {
-    const uint32_t v0 = static_cast<uint32_t>(round_div(acc[j][0], qv.x));
-    const uint32_t v1 = static_cast<uint32_t>(round_div(acc[j][1], qv.y));
-    const uint32_t v2 = static_cast<uint32_t>(round_div(acc[j][2], qv.z));
-    const uint32_t v3 = static_cast<uint32_t>(round_div(acc[j][3], qv.w));
-    *reinterpret_cast<uint2*>(zq + ((m0 + 4 * j) * G::NB2 + blk) * 64 +
-                              4 * cg) =
-        make_uint2((v0 & 0xffffu) | (v1 << 16), (v2 & 0xffffu) | (v3 << 16));
-  }
+  for (int j = 0; j < kBpt; ++j)
+    store_quantized(acc[j], qv,
+                    zq + ((m0 + 4 * j) * G::NB2 + blk) * 64 + 4 * cg);
   __syncthreads();
   return zq;
 }
@@ -462,57 +487,122 @@ __device__ __forceinline__ void copy_zz(const int16_t* zq, int n,
   for (int i = tid; i < n / 8; i += n_threads) d[i] = s[i];
 }
 
-// Gray. SLOTS consecutive 8x8 blocks (raster order over the block grid, mx
-// blocks per row) starting at block first_g (-1: a zero slot). 256 threads:
-// thread tid owns coefficient tid & 63 of slots tid >> 6, + 4, + 8, ...
-//  1. xs [SLOTS][64] takes float(pixel) - 128 (exact), clamped as above; ks
-//     [64][64] takes the operator KDCT_ZZ (pixel -> zigzag coefficient).
-//  2. Each coefficient is 64 FMAs in k order, / q, round half away.
-//  3. The quantized values replace xs as int zq [SLOTS][64] (returned).
+// Gray. A thread block of kGrayThreads = 256 threads takes a tile of
+// kGrayTile = 16 * kGrayBpt consecutive 8x8 blocks inside one block row of
+// one image (grid: tiles per row, block rows, images), so each of the tile's
+// 8 pixel rows is one contiguous run of bytes. Shared arrays: ks [64][64]
+// (KDCT_ZZ, pixel -> zigzag coefficient) and xs [kGrayTile][kGrayStride].
+//  1. load_gray_tile fills xs with float(pixel) - 128 (exact), one block's
+//     64 samples row-major per slot. A unit is one pixel row of two
+//     neighbouring blocks, 16 bytes: one 16-byte load, four 4-byte loads or
+//     16 clamped byte loads by the alignment of the image and its width W
+//     (load_alignment) and the unit's position (the clamp is the
+//     replicate pad; rows past H-1 read row H-1 with the unit's own load).
+//     Neighbouring threads take neighbouring units of one pixel row. Bytes
+//     become floats through the float adder (2^23 + b - (2^23 + 128)), not
+//     the conversion unit. The slot pad of 4 floats puts the two blocks a
+//     warp reads in the products into different bank groups.
+//  2. gray_tile_product: thread (bg, cg) = (tid >> 4, tid & 15) owns
+//     coefficients 4*cg..4*cg+3 of the kGrayBpt blocks bg, bg + 16, ...
+//     (block_products: 4 + kGrayBpt 16-byte shared loads for 16 * kGrayBpt
+//     FMAs; a half-warp reads one sample address, a broadcast, and one ks
+//     row), / q, round half away.
+//  3. The quantized values replace xs as int16 zq [kGrayTile][64]: the
+//     tile's blocks in raster order, the layout of the output.
+// Blocks per thread, kGrayBpt, is a compile-time constant (-DJPGENC_GRAY_BPT=n
+// rebuilds gray K1A and gray K1 with another; kernels/gray_sweep.py does so
+// and times them); ops/cuda/k1_dct.GRAY_TILE mirrors kGrayTile.
+#ifndef JPGENC_GRAY_BPT
+#define JPGENC_GRAY_BPT 8
+#endif
 constexpr int kGrayThreads = 256;
+constexpr int kGrayBpt = JPGENC_GRAY_BPT;
+constexpr int kGrayTile = 16 * kGrayBpt;
+constexpr int kGrayStride = 64 + 4;              // floats per slot of xs
 
-template <int SLOTS>
-__device__ __forceinline__ int* gray_tile_transform(
-    const uint8_t* __restrict__ im, int H, int W, int mx, int n_mcus,
-    int first_g, const float* __restrict__ kdct, const float* __restrict__ q,
-    float* xs, float* ks, int tid) {
-  for (int i = tid; i < 64 * 64; i += kGrayThreads) ks[i] = kdct[i];
-  for (int i = tid; i < SLOTS * 64; i += kGrayThreads) {
-    const int s = i >> 6, e = i & 63;
-    const int g = first_g + s;
-    float val = 0.f;
-    if (g >= 0 && g < n_mcus) {
-      const int my_i = g / mx, mx_i = g - my_i * mx;
-      const int y = min(my_i * 8 + (e >> 3), H - 1);
-      const int x = min(mx_i * 8 + (e & 7), W - 1);
-      val = __fsub_rn(static_cast<float>(im[static_cast<size_t>(y) * W + x]),
-                      128.0f);
-    }
-    xs[i] = val;
-  }
-  __syncthreads();
+// float(byte i of w) - 128, exactly: 2^23 + b is a float whose low mantissa
+// bits are b, and the difference of two floats in [2^23, 2^24) is exact.
+__device__ __forceinline__ float level_shift(uint32_t w, int i) {
+  return __fsub_rn(__uint_as_float(__byte_perm(w, 0x4b000000u, 0x7440 | i)),
+                   8388736.0f);
+}
 
-  constexpr int PER = (SLOTS + 3) / 4;           // slots per thread
-  const int c = tid & 63, s0 = tid >> 6;
-  int out[PER];
-  const float qc = q[c];
+// The 16 pixels x .. x+15 of one image row as four little-endian words.
+__device__ __forceinline__ void gather_gray(const uint8_t* __restrict__ row,
+                                            int W, int vec, int x,
+                                            uint32_t (&w)[4]) {
+  if (x + 16 <= W && vec == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + x));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if (x + 16 <= W && vec == 4) {
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int s = s0 + 4 * j;
-    float acc = 0.f;
-    if (s < SLOTS) {
-      for (int k = 0; k < 64; ++k)
-        acc = __fmaf_rn(xs[s * 64 + k], ks[k * 64 + c], acc);
-    }
-    out[j] = round_div(acc, qc);
+    for (int i = 0; i < 4; ++i)
+      w[i] = __ldg(reinterpret_cast<const uint32_t*>(row + x) + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = 0u;
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      w[b >> 2] |= static_cast<uint32_t>(__ldg(row + min(x + b, W - 1)))
+                   << ((b & 3) * 8);
   }
+}
+
+// Loader: blocks mx0 .. mx0+kGrayTile-1 of block row by (those past mx-1
+// are skipped: their slots hold garbage that no one stores).
+__device__ __forceinline__ void load_gray_tile(
+    const uint8_t* __restrict__ im, int H, int W, int vec, int mx, int by,
+    int mx0, float* xs, int tid) {
+  constexpr int COLS = kGrayTile / 2;            // units per pixel row
+  for (int u = tid; u < COLS * 8; u += kGrayThreads) {
+    const int cu = u % COLS, r = u / COLS;
+    if (mx0 + 2 * cu >= mx) continue;
+    uint32_t w[4];
+    gather_gray(im + static_cast<size_t>(min(8 * by + r, H - 1)) * W, W, vec,
+                8 * (mx0 + 2 * cu), w);
+    float* d = xs + 2 * cu * kGrayStride + 8 * r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[8];
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+        v[p] = level_shift(w[2 * h + (p >> 2)], p & 3);
+      store8(d + h * kGrayStride, v);
+    }
+  }
+}
+
+// One block (bx, by) of the image into x [64]: gray K1A's predecessor. The
+// calling thread takes pixel row j; a thread with another j does nothing.
+__device__ __forceinline__ void load_gray_block(
+    const uint8_t* __restrict__ im, int H, int W, int bx, int by, float* x,
+    int j) {
+  if (j >= 8) return;
+  const uint8_t* row = im + static_cast<size_t>(min(8 * by + j, H - 1)) * W;
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+    x[8 * j + p] = level_shift(__ldg(row + min(8 * bx + p, W - 1)), 0);
+}
+
+// Steps 2 and 3 on xs and ks as the loaders left them (the caller has
+// synchronised); q [64] f32, 16-byte aligned. Every thread of the block must
+// call it; it synchronises the block before it overwrites xs and before it
+// returns.
+__device__ __forceinline__ int16_t* gray_tile_product(
+    float* xs, const float* ks, const float* __restrict__ q, int tid) {
+  const int cg = tid & 15, bg = tid >> 4;
+  float acc[kGrayBpt][4];
+  block_products<kGrayBpt, 16 * kGrayStride>(xs + bg * kGrayStride,
+                                             ks + 4 * cg, acc);
+  const float4 qv = __ldg(reinterpret_cast<const float4*>(q) + cg);
   __syncthreads();                               // xs becomes zq below
-  int* zq = reinterpret_cast<int*>(xs);
+  int16_t* zq = reinterpret_cast<int16_t*>(xs);
 #pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int s = s0 + 4 * j;
-    if (s < SLOTS) zq[s * 64 + c] = out[j];
-  }
+  for (int j = 0; j < kGrayBpt; ++j)
+    store_quantized(acc[j], qv, zq + (bg + 16 * j) * 64 + 4 * cg);
   __syncthreads();
   return zq;
 }

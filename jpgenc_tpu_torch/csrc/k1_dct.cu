@@ -45,8 +45,10 @@
 // (the measured times beside the bytes bound are in PERF.md section 6); the
 // repack wrapper, its torch prologue; the separable kernel, its chroma
 // threads (nb*64 FMAs each against 64 for a luma thread, two shared loads or
-// one L1 load per FMA) and the 3-byte pixel reads; gray, device memory
-// (1 byte in, 2 bytes out per pixel).
+// one L1 load per FMA) and the 3-byte pixel reads; gray, the products' FMA
+// issue, the quantizer's true divisions and the loader (0.153-0.1554 ms for
+// 16 x 1080p gray against 0.0634 for its FMAs at the float32 peak and a bytes
+// bound of 0.0297, NVIDIA H100 80GB HBM3 at 700 W; common.cuh's header).
 #include "common.cuh"
 
 namespace {
@@ -54,7 +56,6 @@ namespace {
 using namespace jpgenc;
 
 constexpr int kTile = 8;           // MCUs per thread block (separable)
-constexpr int kGrayTile = 32;      // 8x8 blocks per thread block (gray)
 
 template <int HS, int VS>
 constexpr size_t smem_bytes() {                  // ks, then xs
@@ -196,25 +197,30 @@ k1_color_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
         static_cast<int16_t>(round_div(acc[s], qc));
 }
 
-__global__ void __launch_bounds__(kGrayThreads)
-k1_gray_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
-               int n_mcus, int n_slots, const float* __restrict__ kdct,
+// Gray: the transform half of gray K1A (k1a_gray.cu) with a plain store;
+// both run common.cuh's gray loader and gray_tile_product. A tile's blocks
+// are consecutive in [B, n_slots, 64], so they leave shared memory as one
+// run of 16-byte stores.
+constexpr size_t kGraySmemBytes = 4 * (64 * 64 + kGrayTile * kGrayStride);
+
+__global__ void __launch_bounds__(kGrayThreads, 3)
+k1_gray_kernel(const uint8_t* __restrict__ img, int H, int W, int vec, int mx,
+               int n_slots, const float* __restrict__ kdct,
                const float* __restrict__ q, int16_t* __restrict__ zz_out) {
-  __shared__ __align__(16) float xs[kGrayTile * 64];
-  __shared__ __align__(16) float ks[64 * 64];
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* xs = ks + 64 * 64;
 
   const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int g0 = blockIdx.x * kGrayTile;
+  const int mx0 = blockIdx.x * kGrayTile, by = blockIdx.y, n = blockIdx.z;
   const uint8_t* im = img + static_cast<size_t>(n) * H * W;
-  const int* zq = gray_tile_transform<kGrayTile>(im, H, W, mx, n_mcus, g0,
-                                                 kdct, q, xs, ks, tid);
-  for (int i = tid; i < kGrayTile * 64; i += kGrayThreads) {
-    const int g = g0 + (i >> 6);
-    if (g < n_mcus)
-      zz_out[(static_cast<size_t>(n) * n_slots + g) * 64 + (i & 63)] =
-          static_cast<int16_t>(zq[i]);
-  }
+  load_operator(kdct, ks, tid, kGrayThreads);
+  load_gray_tile(im, H, W, vec, mx, by, mx0, xs, tid);
+  __syncthreads();
+  const int16_t* zq = gray_tile_product(xs, ks, q, tid);
+  copy_zz(zq, min(kGrayTile, mx - mx0) * 64,
+          zz_out + (static_cast<size_t>(n) * n_slots + by * mx + mx0) * 64,
+          tid, kGrayThreads);
 }
 
 enum Variant { kRows = 0, kRepack = 1, kSeparable = 2 };
@@ -243,7 +249,7 @@ cudaError_t launch_rows(const Args& a, int my, int mx) {
   const dim3 grid((mx + kTileMcus - 1) / kTileMcus, my, a.B);
   k1_kernel<HS, VS><<<grid, L, kBytes, a.stream>>>(
       static_cast<const uint8_t*>(a.src), a.H, a.W,
-      load_alignment(a.src, a.W), mx, a.n_slots,
+      load_alignment(a.src, 3 * a.W), mx, a.n_slots,
       static_cast<const float*>(a.op), static_cast<const float*>(a.q),
       static_cast<int16_t*>(a.zz_out));
   return cudaGetLastError();
@@ -313,18 +319,24 @@ extern "C" int k1_dct_launch(int variant, const void* src, int B, int H,
 }
 
 // img [B,H,W] u8; kdct [64,64] f32; q [64] f32 (zigzag order); zz_out
-// [B, n_slots, 64] i16 with n_slots >= n_blocks. Returns cudaGetLastError().
+// [B, n_slots, 64] i16 with n_slots >= n_blocks; kdct, q and zz_out 16-byte
+// aligned. Returns cudaGetLastError().
 extern "C" int k1_gray_launch(const void* img, int B, int H, int W,
                               int n_slots, const void* kdct, const void* q,
                               void* zz_out, void* stream) {
-  if (B < 1 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int mx = (W + 7) / 8;
-  const int n_mcus = ((H + 7) / 8) * mx;
-  if (n_slots < n_mcus) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_mcus + kGrayTile - 1) / kGrayTile, B);
-  k1_gray_kernel<<<grid, kGrayThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), H, W, mx, n_mcus, n_slots,
-      static_cast<const float*>(kdct), static_cast<const float*>(q),
+  if (B < 1 || H < 1 || W < 1 || !aligned16(kdct) || !aligned16(q) ||
+      !aligned16(zz_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mx = (W + 7) / 8, my = (H + 7) / 8;
+  if (n_slots < my * mx || my > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(k1_gray_kernel, kGraySmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((mx + kGrayTile - 1) / kGrayTile, my, B);
+  k1_gray_kernel<<<grid, kGrayThreads, kGraySmemBytes,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(img), H, W, load_alignment(img, W), mx,
+      n_slots, static_cast<const float*>(kdct), static_cast<const float*>(q),
       static_cast<int16_t*>(zz_out));
   return static_cast<int>(cudaGetLastError());
 }

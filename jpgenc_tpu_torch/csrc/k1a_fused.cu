@@ -189,7 +189,7 @@ cudaError_t launch(const Args& a) {
   const dim3 grid((mx + S::T - 1) / S::T, my, a.B);
   k1a_kernel<HS, VS><<<grid, (HS * VS + 2) * 64, S::BYTES, a.stream>>>(
       static_cast<const uint8_t*>(a.img), a.H, a.W,
-      load_alignment(a.img, a.W), mx, n_mcus, a.mps, a.n_slots,
+      load_alignment(a.img, 3 * a.W), mx, n_mcus, a.mps, a.n_slots,
       static_cast<const float*>(a.kdct), static_cast<const float*>(a.q),
       static_cast<const int*>(a.ac_rows), static_cast<const int*>(a.dc_rows),
       static_cast<const int*>(a.misc), a.w_blk, static_cast<uint32_t*>(a.buf),

@@ -16,6 +16,11 @@ has three variants, one per Pallas kernel of the reference:
     luma block and one [nb*64, 64] product per chroma plane. Taken for every
     colour frame when the module switch K1_DENSE is False.
 
+Gray has one kernel (replaces `_gray_kernel`): each 8x8 block of
+(pixel - 128) times KDCT_ZZ, / q, round half away, over tiles of GRAY_TILE
+blocks inside one block row. It is the transform half of the gray K1A kernel
+and calls the same device functions, so the two hold the same coefficients.
+
 The reference's two dense kernels multiply an MCU's bytes by one dense
 [3*mh*mw, (nb+2)*64] operator built for a matrix unit. "rows" and "repack"
 compute the same function per block instead (the shared transform), in the
@@ -82,6 +87,11 @@ K1_DENSE = True
 #: choice, not a capacity limit: it is kept so that both packages take the
 #: same variant for the same frame.
 ROW_GATE_BYTES = 4 << 20
+
+#: 8x8 blocks a thread block of the gray kernels (gray K1, gray K1A) takes,
+#: consecutive inside one block row: csrc/common.cuh's kGrayTile, 16 blocks
+#: times JPGENC_GRAY_BPT (kernels/gray_sweep.py rebuilds with others)
+GRAY_TILE = 128
 
 VARIANTS = ("rows", "repack", "separable")
 

@@ -784,6 +784,77 @@ def test_shared_transform_takes_an_unaligned_batch(cuda):
         assert torch.equal(want.reshape(-1), zz.reshape(-1))
 
 
+# --- the gray transform of gray K1 and gray K1A: every loader branch ---------
+
+T_G = k1_dct.GRAY_TILE
+# widths a multiple of 16 (160; 8 * T_G, one tile a row), of 4 only (100,
+# 8 * T_G + 4) and odd (61, 1337); one tile plus one block a row
+# (8 * T_G + 8); heights no multiple of 8 (17, 37, 5); a single block (8 x 8,
+# and 5 x 7, all replicate pad)
+GRAY_EDGES = [(16, 160), (40, 100), (37, 61), (17, 1337), (8, 8), (5, 7),
+              (24, 8 * T_G), (24, 8 * T_G + 8), (17, 8 * T_G + 4)]
+
+
+def _gray_counts():
+    return (k1_dct.launches_gray, k1a_fused.launches_gray,
+            k1_dct.plain_calls, k1a_fused.plain_calls)
+
+
+def _hold_gray(x, dri, w_blk=8):
+    """Gray K1 and gray K1A on x: equal coefficients, each launched once and
+    no plain version called, the coefficients within the knife-edge policy
+    of the plain version, K1A's words and bits equal to entropy_plain on its
+    own coefficients (the DC predictor across tiles, rows and segments), the
+    pad slots zero. Returns K1's coefficients."""
+    h, w = x.shape[1:]
+    _, ops, tabs = _plan(h, w, "gray", 75, dri)
+    lay = ops[0]
+    before = _gray_counts()
+    zz_k1 = k1_dct.fused_pixels_to_scan(x, *ops)
+    buf, bits, zz = k1a_fused.fused_pixels_to_pack(x, *ops, tabs, w_blk,
+                                                   return_zz=True)
+    torch.cuda.synchronize()
+    assert _gray_counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    assert torch.equal(zz_k1[:, :lay.n_scan].reshape(-1), zz.reshape(-1))
+    assert not zz_k1[:, lay.n_scan:].any()
+    _only_knife_edges(zz, x, ops)
+    ebuf, ebits = k1a_fused.entropy_plain(zz.to(torch.int32), lay, tabs,
+                                          w_blk)
+    assert torch.equal(ebits, bits) and torch.equal(ebuf, buf)
+    assert not bits[:, lay.n_scan:].any() and not buf[:, lay.n_scan:].any()
+    return zz_k1
+
+
+@pytest.mark.parametrize("h,w", GRAY_EDGES)
+def test_gray_kernels_at_tile_and_image_edges(cuda, h, w):
+    imgs = np.stack([_frame(h, w, "gray", seed=s) for s in (3, 4)])
+    _hold_gray(torch.from_numpy(imgs).to(cuda), 0)
+
+
+@pytest.mark.parametrize("dri", [1, 3, 7, 240])
+@pytest.mark.parametrize("h,w", [(40, 8 * T_G + 8), (24, 1920)])
+def test_gray_kernels_with_restart_interval(cuda, h, w, dri):
+    """Segment starts at tile starts, inside tiles and at row starts: rows of
+    T_G + 1 blocks (a tile and one block) and of 240 (DRI 240: every row)."""
+    imgs = np.stack([_frame(h, w, "gray", seed=s) for s in (5, 6)])
+    _hold_gray(torch.from_numpy(imgs).to(cuda), dri)
+
+
+def test_gray_kernels_take_an_unaligned_batch(cuda):
+    """A batch whose first byte is 4- or 1-byte aligned takes the narrower
+    loads and holds the coefficients of the aligned one."""
+    h, w = 24, 8 * T_G + 16
+    imgs = np.stack([_frame(h, w, "gray", seed=s) for s in (6, 7)])
+    x = torch.from_numpy(imgs).to(cuda)
+    want = _hold_gray(x, 0)
+    for off in (4, 1):
+        flat = torch.zeros(x.numel() + 16, dtype=torch.uint8, device=cuda)
+        view = flat[off:off + x.numel()].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == off and view.is_contiguous()
+        assert torch.equal(want, _hold_gray(view, 0))
+
+
 def _rst_markers(scan: bytes) -> list[int]:
     return [scan[i + 1] for i in range(len(scan) - 1)
             if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7]

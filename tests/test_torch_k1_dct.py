@@ -184,3 +184,45 @@ def test_k1_wrapper_takes_plain_version_only_on_cpu():
                                       plan3.q)
     assert tuple(zz3.shape) == (1, 24, 64) and plan3.layout.n_scan == 18
     assert not zz3[:, 18:].any() and zz3[:, :18].any()
+
+
+# The gray kernels' tile edges: one tile row (8 * GRAY_TILE px), one tile
+# plus one block, a width that is a multiple of 4 only and one that is odd,
+# heights that are no multiple of 8, and a single block smaller than 8 x 8
+# (the shapes the GPU lane holds the gray kernels at)
+GRAY_EDGES = [(24, 8 * k1_dct.GRAY_TILE), (24, 8 * k1_dct.GRAY_TILE + 8),
+              (17, 8 * k1_dct.GRAY_TILE + 4), (37, 61), (5, 7), (8, 8)]
+
+
+@pytest.mark.parametrize("h,w", GRAY_EDGES)
+def test_gray_plain_equals_engine_on_tile_edges(h, w):
+    """The gray plain version, which the gray kernels are held to on the
+    card, against the reference's own path off the TPU: a coefficient may
+    differ only where its float64 value lies within 1e-4 of a rounding
+    boundary (the two sum the 64 products in other orders; the single 8 x 8
+    block holds one at 0.49999997, where the port rounds to 0 and the
+    reference to 1)."""
+    img = _image(h, w, "gray", seed=5)
+    plan, zz = _ours(img[None], "gray", 75)
+    zz = zz[0].numpy().astype(np.int32)
+    ref = _engine_zz(img, "gray", 75).astype(np.int32)
+    d = zz != ref
+    assert np.abs(zz - ref).max() <= 1 and d.sum() <= 1
+    exact = k1_dct.scaled_coefficients(
+        torch.from_numpy(img)[None], plan.layout, plan.kdct, plan.q,
+        dtype=torch.float64)[0].numpy()
+    assert (np.abs(exact - np.floor(exact) - 0.5)[d] < 1e-4).all()
+
+
+def test_gray_tile_is_the_kernel_sources_default():
+    """k1_dct.GRAY_TILE, by which the GPU lane and the sweep size their
+    frames, is 16 blocks times the JPGENC_GRAY_BPT that csrc/common.cuh
+    compiles with."""
+    import os
+    import re
+
+    from jpgenc_tpu_torch.kernels import build
+    src = open(os.path.join(build._CSRC, "common.cuh")).read()
+    bpt = re.search(r"#define JPGENC_GRAY_BPT (\d+)", src)
+    assert bpt and 16 * int(bpt.group(1)) == k1_dct.GRAY_TILE
+    assert "constexpr int kGrayTile = 16 * kGrayBpt;" in src
