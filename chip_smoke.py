@@ -10,7 +10,7 @@ through `api.decode_batch` / `api.decode`, each with the launch counters
 reset just before it and read just after:
 
   * the fused path: 16 distinct 1080p RGB frames, 4:2:0, Q75, standard tables
-    (K1A -> kernel B);
+    (K1A -> the merge tail: kernel B with the word compaction);
   * the split path: the same frames with optimize=True, one Huffman table set
     per image (K1 -> histogram -> host tables -> kernel A -> kernel B);
   * gray: the luma of the same frames, without optimize (gray K1A -> kernel
@@ -125,6 +125,28 @@ def main() -> None:
         t1.synchronize()
         return t0.elapsed_time(t1) / iters
 
+    def device_profile(fn, n_calls):
+        """(device ms, device records) per call of fn under torch.profiler:
+        the kernels' and copies' device time, and how many ran. None where
+        the profiler reports no device time."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)), e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(t for t, _ in rows)
+        if not us:
+            return None
+        return {"device_ms": round(us / n_calls / 1e3, 4),
+                "launches_per_call": sum(c for _, c in rows) / n_calls}
+
     def knife_edge(a, b, what):
         d = (a.to(torch.int32) - b.to(torch.int32)).abs()
         mx, frac = int(d.max()), float((d > 0).double().mean())
@@ -211,23 +233,51 @@ def main() -> None:
               "mismatch_frac": frac})
     ref_s = time.perf_counter() - t0
 
-    # --- phase 3: kernel B against its plain version ------------------------
-    buf8, bits8 = k1a_fused.fused_pixels_to_pack(x4, *ops, tabs, 8)
-    n_seg = x4.shape[0] * lay.n_segments
+    # --- phase 3: the merge tail against its plain version ------------------
+    # kernel B, the compaction and the overflow flag in one wrapper
+    # (seg_merge.fused_merge) against merge_plain (seg_merge_plain ->
+    # pack.wcompact_unstuffed -> amax) on the card: nbits and ovf exactly,
+    # and every word of each image's aligned prefix
     cap_w = engine.scan_caps(lay, Q, "tight")[0] // 4
-    flat = (buf8.reshape(-1, 8), bits8.reshape(-1))
-    for cap in (None, cap_w):
-        sw, sb = seg_merge.fused_seg_merge(*flat, n_seg, 8, cap_words=cap)
-        pw, pb = seg_merge.seg_merge_plain(*flat, n_seg, 8, cap_words=cap)
+    noise = np.random.default_rng(0).integers(0, 256, (H, W, 3), np.uint8)
+    x2 = torch.from_numpy(np.stack([imgs4[0], noise])).to(dev)
+
+    def hold_merge(buf, bits, layout, cap, w_blk, what):
+        walign = pack.walign_for(layout.blocks_per_segment)
+        kw, kn, ko = seg_merge.fused_merge(buf, bits, layout.n_segments,
+                                           w_blk, cap, walign)
+        pw, pn, po = seg_merge.merge_plain(buf, bits, layout.n_segments,
+                                           w_blk, cap, walign)
         torch.cuda.synchronize()
-        if not torch.equal(sb, pb):
-            fail(f"kernel B seg_bits != plain (cap={cap})")
-        used = ((sb.to(torch.int64) + 31) >> 5).tolist()
-        for s, u in enumerate(used):
-            if not torch.equal(sw[s, :u], pw[s, :u]):
-                fail(f"kernel B segment {s} != plain (cap={cap})")
-        emit({"phase": "seg_merge", "cap_words": cap, "exact": True,
-              "seg_bits": sb.tolist()})
+        if not (torch.equal(kn, pn) and torch.equal(ko, po)):
+            fail(f"merge tail nbits/ovf != merge_plain ({what})")
+        need = pack.seg_nwords_aligned(kn.to(torch.int64), walign).sum(1)
+        for i, k in enumerate(need.clamp(max=cap).tolist()):
+            if not torch.equal(kw[i, :k], pw[i, :k]):
+                fail(f"merge tail image {i} != merge_plain ({what})")
+        return need, ko
+
+    dri3 = engine.get_plan(H, W, "420", Q, "cuda", 120)
+    for pl3 in (plan, dri3):
+        lay3 = pl3.layout
+        for x_, what in ((x4, "4 frames"), (x2, "frame 0 + noise")):
+            buf8, bits8 = k1a_fused.fused_pixels_to_pack(
+                x_, lay3, pl3.kdct, pl3.q, tabs, 8)
+            for cap in (None, cap_w):
+                cap_ = engine.scan_caps(lay3, Q, "worst")[0] // 4 \
+                    if cap is None else cap
+                need, ovf_ = hold_merge(buf8, bits8, lay3, cap_, 8,
+                                        f"{what}, DRI "
+                                        f"{lay3.restart_interval}, cap "
+                                        f"{cap_}")
+                emit({"phase": "merge_tail", "input": what,
+                      "restart_interval": lay3.restart_interval,
+                      "segments": lay3.n_segments, "cap_words": cap_,
+                      "prefix_words": need.tolist(), "ovf": ovf_.tolist(),
+                      "exact": True})
+    if not ovf_[1] or ovf_[0]:
+        fail("the noise frame did not overflow w_blk 8, or frame 0 did")
+    del buf8, bits8
 
     # --- phase 4: the fused path --------------------------------------------
     imgs16 = fixtures.synth_batch(H, W, 16)
@@ -368,8 +418,6 @@ def main() -> None:
     entropy_ref_s = time.perf_counter() - t0
 
     # worst-tier retry: a uniform-noise frame overflows the tight tier
-    noise = np.random.default_rng(0).integers(0, 256, (H, W, 3), np.uint8)
-    x2 = torch.from_numpy(np.stack([imgs16[0], noise])).to(dev)
     tight = plan.fetch(plan(x2, cap_w * 4, 8), cap_w * 4)
     if not tight[0][2] or tight[1][2]:
         fail("expected the tight tier to fit frame 0 and overflow the noise")
@@ -667,17 +715,23 @@ def main() -> None:
             "k1a": round(sync_ms(lambda: k1a_fused.fused_pixels_to_pack(
                 x16, *kops_, tabs, 8), 10), 4)}
 
-    flat16 = (b16.reshape(-1, 8), bits16.reshape(-1))
-    n16 = n_img * lay.n_segments
-    sw, _ = seg_merge.fused_seg_merge(*flat16, n16, 8, cap_words=cap_w)
-    pw, _ = seg_merge.seg_merge_plain(*flat16, n16, 8, cap_words=cap_w)
-    seg_err = int((sw.to(torch.int64) - pw.to(torch.int64)).abs().max())
-    if seg_err:
-        fail("kernel B != seg_merge_plain at B=16")
-    seg_ms = sync_ms(lambda: seg_merge.fused_seg_merge(
-        *flat16, n16, 8, cap_words=cap_w), 20)
-    seg_plain_ms = sync_ms(lambda: seg_merge.seg_merge_plain(
-        *flat16, n16, 8, cap_words=cap_w), 5)
+    # the merge tail (EncodePlan.merge: kernel B, the compaction, ovf) at
+    # the fused path's shapes: by CUDA events, and its device time and
+    # kernels per call under torch.profiler
+    need16, _ = hold_merge(b16, bits16, lay, cap_w, 8, "16 frames")
+    seg_err = 0
+    seg_prefix_words = int(need16.clamp(max=cap_w).sum())
+
+    def tail():
+        return plan.merge(b16, bits16, cap_w * 4, 8)
+
+    def tail_plain():
+        return seg_merge.merge_plain(b16, bits16, lay.n_segments, 8, cap_w,
+                                     plan.walign)
+
+    seg_ms = sync_ms(tail, 20)
+    seg_plain_ms = sync_ms(tail_plain, 5)
+    seg_dev = device_profile(tail, 10)
 
     # kernel A at the optimize path's shapes: per-image tables, w_blk 8
     dcdiff16 = block_pack.slot_metadata(plan.prev_same, zz16_k1)
@@ -704,6 +758,33 @@ def main() -> None:
     del abuf, abits, pbuf, pbits
     a_ms = sync_ms(a_kernel, 20)
     a_plain_ms = sync_ms(a_plain, 2)
+    # kernel A's worst case at the same shapes: every AC coefficient nonzero
+    # (|v| 1..1023), DC differences up to +-2046, standard tables; exact at
+    # w_blk 8 (every block overflows it) and 56, timed at 56
+    rng_d = np.random.default_rng(5)
+    mag = rng_d.integers(1, 1024, tuple(zz16_k1.shape), dtype=np.int16)
+    dense = torch.from_numpy(mag * rng_d.choice(
+        np.array([-1, 1], np.int16), mag.shape)).to(dev)
+    dense[..., 0] = torch.from_numpy(rng_d.integers(
+        -1023, 1024, tuple(zz16_k1.shape[:2]), dtype=np.int16)).to(dev)
+    ddc = block_pack.slot_metadata(plan.prev_same, dense)
+    for w_blk in (8, 56):
+        abuf, abits = block_pack.fused_block_pack(dense, ddc, *slot_plan,
+                                                  tabs, w_blk)
+        pbuf, pbits = block_pack.pack_blocks_plain(
+            dense.reshape(-1, 64), ddc.reshape(-1), plan.ac_tab.repeat(n_img),
+            tabs, w_blk, dctab=plan.dc_tab.repeat(n_img),
+            valid=plan.valid.repeat(n_img))
+        if not (torch.equal(abits.reshape(-1), pbits)
+                and torch.equal(abuf.reshape(-1, w_blk), pbuf)):
+            fail(f"kernel A != pack_blocks_plain, all-nonzero, w_blk={w_blk}")
+        if w_blk == 8 and int(abits.min()) <= 256:
+            fail("a block of the all-nonzero input fits w_blk 8")
+        del abuf, pbuf, pbits
+    a_dense_ms = sync_ms(lambda: block_pack.fused_block_pack(
+        dense, ddc, *slot_plan, tabs, 56), 10)
+    a_dense_bits = int(abits.to(torch.int64).sum())
+    del dense, ddc, abits
     hist_ms = sync_ms(lambda: entropy.symbol_histogram(
         zz16_k1, dcdiff16, *slot_plan), 5)
     torch.cuda.synchronize()
@@ -1121,13 +1202,8 @@ def main() -> None:
     # compaction -> the same fetch and finalize; files byte for byte
     dcap = engine.scan_caps(dlay, Q, "tight")[0]
     n_dseg = dlay.n_segments
-    psw, psb = seg_merge.seg_merge_plain(
-        pbuf.reshape(-1, 8), pbits.reshape(-1), 4 * n_dseg, 8,
-        cap_words=dcap // 4)
-    pws, pnb = pack.wcompact_unstuffed(
-        psw.reshape(4, n_dseg, -1), psb.reshape(4, n_dseg), dcap // 4,
-        dplan.walign)
-    plain_scans = dplan.finalize((pws, pnb, pbits.amax(dim=1) > 256), dcap)
+    plain_scans = dplan.finalize(seg_merge.merge_plain(
+        pbuf, pbits, n_dseg, 8, dcap // 4, dplan.walign), dcap)
     if dri_plain_equal:
         for i, scan in enumerate(plain_scans):
             if scan is None or dri_files[i] != (
@@ -1182,7 +1258,7 @@ def main() -> None:
           "bpp": same_bpp("gray_dri", bpp(gdri_files)),
           "decode_exact": True, "rst_markers_exact": True,
           "decode_batch_pixels_exact": True})
-    del dbuf, dbits, dzz, pbuf, pbits, psw, pws, gdbuf, gdbits, gdzz
+    del dbuf, dbits, dzz, pbuf, pbits, gdbuf, gdbits, gdzz
 
     # small sizes: DRI 1, 3 (short last segment, pad slots), 7 in every
     # mode, odd widths; and the worst tier (w_blk 56) once with DRI
@@ -1555,7 +1631,9 @@ def main() -> None:
     slots, gslots = n_img * lay.n_scan, n_img * glay.n_scan
     tab_b = 4 * (512 + 256 + 4)
     op_b = 4 * (64 * 64 + l_out)                   # KDCT_ZZ and q
-    seg_out_b = 4 * n16 * min(lay.blocks_per_segment * 8 + 2, cap_w)
+    # the merge tail: buf and bits in; the streams' prefixes, nbits and ovf
+    # out; 4 operations per output word
+    seg_out_b = 4 * seg_prefix_words + 4 * n_img * lay.n_segments + n_img
 
     def bound(nbytes, n_ops, own_ops=None):
         by, op = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
@@ -1610,9 +1688,15 @@ def main() -> None:
          "source": "jpgenc_tpu_torch/csrc/seg_merge.cu",
          "replaces": "jpgenc_tpu/ops/pallas/seg_merge.py:48",
          "launches": main_launches["seg_merge"], "max_abs_err": seg_err,
-         "tolerance": exact, "ms": round(seg_ms, 4),
+         "tolerance": "exact: nbits, ovf and each image's aligned stream "
+                      "prefix",
+         "covers": "kernel B, the word compaction and the overflow flag "
+                   "(EncodePlan.merge)",
+         "ms": round(seg_ms, 4),
+         "device_ms": seg_dev and seg_dev["device_ms"],
+         "launches_per_call": seg_dev and seg_dev["launches_per_call"],
          "plain_ms": round(seg_plain_ms, 4),
-         **bound(slots * (4 * 8 + 4) + seg_out_b + 4 * n16, seg_out_b),
+         **bound(slots * (4 * 8 + 4) + seg_out_b, seg_prefix_words * 4.0),
          "library_ms": None},
         {"name": "k1_dct", "route": "cuda",
          "source": "jpgenc_tpu_torch/csrc/k1_dct.cu",
@@ -1629,6 +1713,11 @@ def main() -> None:
          "replaces": "jpgenc_tpu/ops/pallas/block_pack.py:109",
          "launches": opt_launches["block_pack"], "max_abs_err": a_err,
          "tolerance": exact, "ms": round(a_ms, 4),
+         "ms_all_nonzero": round(a_dense_ms, 4),
+         "all_nonzero_bytes_ms": round(
+             (slots * (128 + 4 + 4 * 56 + 4) + 12 * lay.n_scan + tab_b)
+             / HBM_BYTES_PER_S * 1e3, 4),
+         "all_nonzero_coded_bits": a_dense_bits,
          "plain_ms": round(a_plain_ms, 4),
          **bound(slots * (128 + 4 + 4 * 8 + 4) + 12 * lay.n_scan
                  + n_img * tab_b, pack_ops),

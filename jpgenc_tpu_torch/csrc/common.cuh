@@ -20,7 +20,12 @@
 //    is an explicit _rn intrinsic, so no contraction choice can differ
 //    between call sites; the division is a true division, never a reciprocal
 //    (jpgenc_tpu/ops/pallas/k1_dct.py:72-74).
-//  * the entropy coder: code_block, one warp per 8x8 block (T.81 F.1.2).
+//  * the entropy coder (T.81 F.1.2), as two device functions that emit the
+//    same pieces in the same order, so that both give the same words and
+//    bits: code_block, one warp per 8x8 block (K1A, gray K1A), and
+//    code_block_serial, one lane per block, whose work follows the block's
+//    nonzero coefficients (kernel A). chip_smoke.py holds kernel A on K1's
+//    coefficients equal to K1A and gray K1A word for word.
 //
 // What bounds the colour transform on the H100 now: instruction throughput,
 // not device memory. K1 rows takes 0.28 ms for 16 x 1080p 4:2:0 (H100 at
@@ -608,7 +613,8 @@ __device__ __forceinline__ int16_t* gray_tile_product(
 }
 
 // ---------------------------------------------------------------------------
-// Entropy coding: one warp per 8x8 block
+// Entropy coding: one warp per 8x8 block (code_block) or one lane per block
+// (code_block_serial)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int bit_length(int a) {   // a >= 0
@@ -713,6 +719,61 @@ __device__ __forceinline__ void code_block(int v_lo, int v_hi, int dcdiff,
   for (int j = lane; j < w_blk; j += 32) words[j] = ws[j];
   if (lane == 0) *bits = tot_a + (tot >> 16);
   __syncwarp();                                   // scratch free for reuse
+}
+
+// One lane codes one 8x8 block: z [64] its zigzag coefficients (shared
+// memory), ac_mask bit p set where AC coefficient p is nonzero (bit 0
+// clear). The pieces of code_block, in its order: the DC piece, then for
+// each set bit (__ffsll) the run's ZRLs and the AC piece, then EOB unless
+// position 63 is nonzero. They collect MSB-first in a 64-bit register that
+// leaves 32 bits at a time into row[0, w_blk), which the caller has zeroed;
+// words at or past w_blk are dropped. Returns the true bit count, so callers
+// detect overflow as bits > 32*w_blk.
+__device__ __forceinline__ int code_block_serial(const int16_t* z,
+                                                 uint64_t ac_mask, int dcdiff,
+                                                 int dctab, int actab,
+                                                 const Tables& t,
+                                                 uint32_t* row, int w_blk) {
+  uint64_t acc = 0;     // pending bits, MSB-aligned
+  int n = 0, k = 0, total = 0;
+  auto put = [&](uint32_t val, int len) {     // len <= 32, n < 32
+    if (len <= 0) return;
+    acc |= static_cast<uint64_t>(val) << (64 - n - len);
+    n += len;
+    total += len;
+    if (n >= 32) {
+      if (k < w_blk) row[k] = static_cast<uint32_t>(acc >> 32);
+      ++k;
+      acc <<= 32;
+      n -= 32;
+    }
+  };
+  {
+    const int s = bit_length(abs(dcdiff));
+    const int e = t.dc[dctab][s];
+    put((static_cast<uint32_t>(e >> 5) << s) | amplitude(dcdiff, s),
+        (e & 31) + s);
+  }
+  const int* ac = t.ac + actab * 256;
+  const int zrl = t.misc[actab];
+  int prev = 0;
+  while (ac_mask) {
+    const int p = __ffsll(static_cast<long long>(ac_mask)) - 1;
+    ac_mask &= ac_mask - 1;
+    int run = p - prev - 1;
+    for (; run >= 16; run -= 16) put(static_cast<uint32_t>(zrl >> 5), zrl & 31);
+    const int v = z[p];
+    const int s = bit_length(abs(v));
+    const int e = ac[(run << 4) | s];
+    put((static_cast<uint32_t>(e >> 5) << s) | amplitude(v, s), (e & 31) + s);
+    prev = p;
+  }
+  if (prev != 63) {
+    const int e = t.misc[2 + actab];
+    put(static_cast<uint32_t>(e >> 5), e & 31);
+  }
+  if (n > 0 && k < w_blk) row[k] = static_cast<uint32_t>(acc >> 32);
+  return total;
 }
 
 }  // namespace jpgenc

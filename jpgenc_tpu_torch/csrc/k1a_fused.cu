@@ -29,8 +29,8 @@
 //     (k1a_fused.py:110-114); a tile that starts a segment loads no
 //     predecessor. Each image owns n_slots >= n_mcus * (nb+2) output slots
 //     (whole segments); the wrapper zeroes the pad slots.
-//  3. Entropy: one warp per 8x8 block (common.cuh's code_block, shared with
-//     kernel A in block_pack.cu).
+//  3. Entropy: one warp per 8x8 block (common.cuh's code_block; kernel A in
+//     block_pack.cu codes the same pieces with code_block_serial).
 //
 // What bounds it on the H100: instruction throughput, in two halves of about
 // equal time. 16 x 1080p 4:2:0 Q75 at w_blk 8 take 0.57 ms (H100 at 700 W)

@@ -3,16 +3,17 @@
 
 The fused path (standard tables):
 
-  pixels (u8, device) -> [K1A] per-block packed words -> [kernel B] segment
-  stream -> word compaction (bswap) -> ONE copy of (prefix, nbits, ovf) to
-  the host -> C++ stuffing finalize (jpgenc_tpu_torch.native) + JFIF headers
+  pixels (u8, device) -> [K1A] per-block packed words -> [kernel B, with
+  the word compaction (bswap)] compact stream, nbits, ovf -> ONE copy of
+  (prefix, nbits, ovf) to the host -> C++ stuffing finalize
+  (jpgenc_tpu_torch.native) + JFIF headers
 
 The split path (two-pass optimized Huffman):
 
   pass 1: pixels -> [K1] scan-ordered zigzag int16, kept on the device
           -> symbol histogram -> host: one Huffman table set per image
   pass 2: zigzag + tables -> [kernel A] per-block packed words -> [kernel B]
-          -> the same compaction, fetch and finalize
+          -> the same fetch and finalize
 
 The integer path (dct_method="islow", libjpeg-exact) is the split path
 with ops/islow.py in K1's place: torch int32 ops -> scan gather -> the same
@@ -21,7 +22,7 @@ histogram, the image's own.
 
 Restart intervals change no stage's shape logic: every slot array is padded
 to whole segments (S = n_segments * blocks_per_segment), kernel B sees
-B * n_segments segments, the compaction aligns segment starts and the host
+n_segments segments an image, aligns their starts in the stream and the host
 finalize joins them with RSTn.
 
 `EncodePlan` takes the role of the reference's `DevicePlan`: its buffers are
@@ -290,16 +291,10 @@ class EncodePlan(nn.Module):
         return self.ac_rows, self.dc_rows, self.misc
 
     def merge(self, buf, bits, cap_u: int, w_blk: int):
-        """Per-block words -> kernel B -> compact stream (the shared tail of
-        both paths)."""
-        b, n_seg = buf.shape[0], self.layout.n_segments
-        seg_words, seg_bits = seg_merge.fused_seg_merge(
-            buf.reshape(-1, w_blk), bits.reshape(-1), b * n_seg, w_blk,
-            cap_words=cap_u // 4)
-        wstream, nbits = pack.wcompact_unstuffed(
-            seg_words.reshape(b, n_seg, -1), seg_bits.reshape(b, n_seg),
-            cap_u // 4, self.walign)
-        return wstream, nbits, bits.amax(dim=1) > 32 * w_blk
+        """Per-block words -> the merge tail (kernel B with the compaction)
+        -> (wstream, nbits, ovf): the shared tail of both paths."""
+        return seg_merge.fused_merge(buf, bits, self.layout.n_segments, w_blk,
+                                     cap_u // 4, self.walign)
 
     def forward(self, imgs: torch.Tensor, cap_u: int, w_blk: int):
         """[B, H, W, 3] (gray: [B, H, W]) u8 on the plan's device ->

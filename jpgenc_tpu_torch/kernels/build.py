@@ -57,7 +57,9 @@ SIGNATURES = {
                           _I, _I,                     # B, n_slots
                           _P, _P, _P, _I,             # ac_rows, dc_rows, misc, n_tables
                           _I, _P, _P, _P],            # w_blk, buf, bits, stream
-    "seg_merge_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "seg_merge_launch": [_P, _P, _I, _I, _I, _I,       # buf, bits, B, n_seg, spb, w_blk
+                         _I, _I, _P,                  # cap_w, walign, scratch
+                         _P, _P, _P, _P],             # wstream, nbits, ovf, stream
     "recon_launch": [_P, _P, _P, _P,                  # x, q, kidct, out
                      _I, _I, _I, _I, _I, _I, _I, _P], # B, my, mx, h, w, hs, vs
     "recon_gray_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -138,6 +140,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.seg_merge_scratch.argtypes = [_I, _I, _I]
+    lib.seg_merge_scratch.restype = ctypes.c_longlong
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     build_seconds = time.perf_counter() - t0

@@ -31,7 +31,7 @@ _M32 = 0xFFFFFFFF
 launches = 0
 plain_calls = 0
 
-#: widest per-block word tier the kernel's word scratch holds
+#: widest per-block word tier the kernel takes (covers MAX_BLOCK_BITS)
 MAX_W_BLK = 56
 
 
@@ -256,6 +256,9 @@ def fused_block_pack(zz: torch.Tensor, dcdiff: torch.Tensor,
             raise ValueError(f"operand {tuple(t.shape)} {t.dtype} {t.device}: "
                              f"expected contiguous {shape} {dt} on "
                              f"{zz.device}")
+    if zz.data_ptr() % 16:
+        raise ValueError("zz must be 16-byte aligned (the kernel reads it "
+                         "16 bytes a lane)")
     buf = torch.empty((b, n_slots, w_blk), dtype=torch.int32,
                       device=zz.device)
     bits = torch.empty((b, n_slots), dtype=torch.int32, device=zz.device)

@@ -4,7 +4,9 @@
 Everything here except `wcompact_unstuffed` is integer host arithmetic
 copied from the reference; tests/test_torch_host.py pins each copy equal to
 its original. `wcompact_unstuffed` is XLA ops in the reference and torch ops
-here, batched over the leading image dimension.
+here, batched over the leading image dimension: the plain version of the
+merge tail's compaction (`ops/cuda/seg_merge.merge_plain`); on the card
+`csrc/seg_merge.cu` writes the compact stream itself.
 """
 from __future__ import annotations
 

@@ -119,6 +119,52 @@ def test_block_pack_plain_vs_pallas_interpret(h, w, mode, dri, w_blk, tables):
     assert int(buf[:, pad].abs().sum()) == 0
 
 
+def _hand_blocks():
+    """Hand-made zigzag blocks: zero runs of 15, 16, 31, 32, 47 and 48 before
+    a nonzero (0-3 ZRLs), a nonzero at position 63 (no EOB), the all-nonzero
+    block, AC +-1023, DC differences +-2047, an empty block, a padding slot;
+    then random dense blocks (which overflow w_blk 1 and 8)."""
+    rng = np.random.default_rng(21)
+    zz = np.zeros((40, 64), np.int64)
+    for k, run in enumerate((15, 16, 31, 32, 47, 48)):
+        zz[k, 1 + run] = 3 - 6 * (k & 1)
+    zz[6, 63] = 1
+    zz[7, 1:] = rng.integers(1, 1024, 63) * rng.choice([-1, 1], 63)
+    zz[8, 1:] = 1023
+    zz[9, [1, 63]] = -1023
+    zz[12:] = rng.integers(-1023, 1024, (28, 64))
+    dcdiff = np.zeros(40, np.int64)
+    dcdiff[:12] = [0, 2047, -2047, 0, 2047, -2047, 5, -5, 1000, -1000, 0, 0]
+    dcdiff[12:] = rng.integers(-2047, 2048, 28)
+    tab = np.arange(40) % 2
+    valid = np.ones(40, np.int64)
+    valid[10] = 0
+    return zz, dcdiff, tab, valid
+
+
+@pytest.mark.parametrize("w_blk", [1, 8, 56])
+def test_block_pack_plain_on_hand_made_blocks(w_blk):
+    """pack_blocks_plain against the Pallas kernel A (interpret mode) on the
+    hand-made blocks: words and true bit counts exact, the padding slot
+    empty, blocks past w_blk truncated."""
+    zz, dcdiff, tab, valid = _hand_blocks()
+    luts = engine.luts_from_tables(*standard_tables())
+    buf, bits = block_pack.pack_blocks_plain(
+        torch.from_numpy(zz), torch.from_numpy(dcdiff),
+        torch.from_numpy(tab), block_pack.packed_tables(luts), w_blk,
+        valid=torch.from_numpy(valid))
+    i32 = [jnp.asarray(a.astype(np.int32)) for a in (zz, dcdiff, tab, tab,
+                                                     valid)]
+    ref_buf, ref_bits = jax_pack(
+        *i32, tables=jax_tables(jeng.luts_from_tables(*standard_tables())),
+        w_blk=w_blk, interpret=True)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(ref_bits))
+    np.testing.assert_array_equal(buf.numpy().view(np.uint32),
+                                  np.asarray(ref_buf))
+    assert int(bits[10]) == 0 and not buf[10].any()
+    assert (int(bits[7]) > 32 * w_blk) == (w_blk < 56)
+
+
 def test_block_pack_wrapper_checks_its_operands():
     lay, sp, zz = _setup(24, 40, "444", 0)
     tabs = block_pack.packed_tables(

@@ -15,7 +15,7 @@ from jpgenc_tpu_torch import api, engine, native
 from jpgenc_tpu_torch import decoder as D
 from jpgenc_tpu_torch.container import parser
 from jpgenc_tpu_torch.layout import make_layout
-from jpgenc_tpu_torch.ops import entropy
+from jpgenc_tpu_torch.ops import entropy, pack
 from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused, recon,
                                        seg_merge)
 from jpgenc_tpu_torch.parallel import mesh
@@ -95,17 +95,86 @@ def _random_blocks(n_blocks, w_blk, seed):
     return torch.from_numpy(buf.view(np.int32)), torch.from_numpy(bits)
 
 
-@pytest.mark.parametrize("n_seg", [1, 3])
+def _prefix_equal(kernel, plain, walign, cap_w):
+    """The merge tail's outputs against merge_plain's: nbits and ovf exact,
+    and each image's stream within its aligned prefix (capped at cap_w)."""
+    kw, kn, ko = (t.cpu() for t in kernel)
+    pw, pn, po = plain
+    assert torch.equal(kn, pn) and torch.equal(ko, po)
+    need = pack.seg_nwords_aligned(kn.to(torch.int64), walign).sum(dim=1)
+    for i, k in enumerate(need.clamp(max=cap_w).tolist()):
+        assert torch.equal(kw[i, :k], pw[i, :k]), f"image {i}"
+
+
+@pytest.mark.parametrize("n_seg,spb", [(1, 700), (3, 200), (2, 1300),
+                                       (2000, 1), (7, 513), (4, 512)])
 @pytest.mark.parametrize("w_blk", [8, 24])
 @pytest.mark.parametrize("capped", [False, True])
-def test_seg_merge_kernel_vs_plain(cuda, n_seg, w_blk, capped):
-    buf, bits = _random_blocks(n_seg * 200, w_blk, seed=n_seg + w_blk)
-    cap = 3000 if capped else None
-    pw, pb = seg_merge.seg_merge_plain(buf, bits, n_seg, w_blk, cap)
-    kw, kb = seg_merge.fused_seg_merge(buf.to(cuda), bits.to(cuda), n_seg,
-                                       w_blk, cap)
+def test_seg_merge_kernel_vs_plain(cuda, n_seg, spb, w_blk, capped):
+    """The merge tail (kernel B, the compaction, ovf) on random block
+    streams with one block past its tier: segments cut into tiles, tiles of
+    whole segments, thousands of one-block segments, capped streams."""
+    n_img, walign = 2, pack.walign_for(spb)
+    buf, bits = _random_blocks(n_img * n_seg * spb, w_blk,
+                               seed=n_seg + spb + w_blk)
+    buf = buf.reshape(n_img, n_seg * spb, w_blk)
+    bits = bits.reshape(n_img, -1)
+    full = int(pack.seg_nwords_aligned(
+        bits.clamp(max=32 * w_blk).reshape(n_img, n_seg, spb).sum(-1)
+        .to(torch.int64), walign).sum(-1).max())
+    cap = full // 2 if capped else full + 40
+    plain = seg_merge.merge_plain(buf, bits, n_seg, w_blk, cap, walign)
+    before = (seg_merge.launches, seg_merge.plain_calls)
+    out = seg_merge.fused_merge(buf.to(cuda), bits.to(cuda), n_seg, w_blk,
+                                cap, walign)
     torch.cuda.synchronize()
-    assert torch.equal(kb.cpu(), pb) and torch.equal(kw.cpu(), pw)
+    assert (seg_merge.launches, seg_merge.plain_calls) == \
+        (before[0] + 1, before[1])
+    assert out[2].tolist() == [True, False]      # block 3 overflowed
+    _prefix_equal(out, plain, walign, cap)
+
+
+@pytest.mark.parametrize("dri", [1, 7, 120])
+@pytest.mark.parametrize("tables", ["standard", "optimized"])
+def test_merge_tail_on_kernel_a_words(cuda, dri, tables):
+    """Kernel A's words (per-image tables too) through the merge tail at
+    restart intervals 1, 7 and 120, uncapped and capped at the tight tier,
+    against merge_plain; no plain version runs on the card."""
+    lay = make_layout(72, 264, "420", dri)
+    sp = engine.make_symbol_plan(lay)
+    n_img = 3
+    zz = _blocks(dri, n_img, sp.valid.size)
+    zz[:, ~sp.valid] = 0
+    zt = torch.from_numpy(zz).to(cuda)
+    prev = torch.from_numpy(sp.prev_same.astype(np.int64)).to(cuda)
+    slot_plan = tuple(torch.from_numpy(a.astype(np.int32)).to(cuda)
+                      for a in (sp.ac_tab, sp.dc_tab, sp.valid))
+    dcdiff = block_pack.slot_metadata(prev, zt)
+    if tables == "standard":
+        dc_t, ac_t = ref_encoder.standard_tables()
+        tabs = tuple(t.to(cuda) for t in block_pack.packed_tables(
+            engine.luts_from_tables(dc_t, ac_t)))
+    else:
+        hist = entropy.symbol_histogram(zt, dcdiff, *slot_plan)
+        tabs = engine.device_tables(
+            *zip(*[engine.tables_from_freq(f, 2) for f in hist.cpu().numpy()]),
+            cuda)
+    walign = pack.walign_for(lay.blocks_per_segment)
+    for w_blk in (8, 56):
+        buf, bits = block_pack.fused_block_pack(zt, dcdiff, *slot_plan, tabs,
+                                                w_blk)
+        for cap in (engine.scan_caps(lay, 75, "worst")[0] // 4,
+                    engine.scan_caps(lay, 75, "tight")[0] // 4):
+            plain_before = (block_pack.plain_calls, seg_merge.plain_calls)
+            out = seg_merge.fused_merge(buf, bits, lay.n_segments, w_blk,
+                                        cap, walign)
+            torch.cuda.synchronize()
+            assert (block_pack.plain_calls, seg_merge.plain_calls) == \
+                plain_before
+            assert bool(out[2].any()) == (w_blk == 8)
+            _prefix_equal(out, seg_merge.merge_plain(
+                buf.cpu(), bits.cpu(), lay.n_segments, w_blk, cap, walign),
+                walign, cap)
 
 
 def _decode(data, layout):
@@ -283,6 +352,54 @@ def test_block_pack_kernel_vs_plain(cuda, h, w, mode, dri, w_blk, tables):
     pad = torch.from_numpy(~sp.valid).to(cuda)
     assert int(bits[:, pad].abs().sum()) == 0
     assert int(buf[:, pad].abs().sum()) == 0
+
+
+def _hand_blocks(n_slots):
+    """Hand-made zigzag blocks (tests/test_torch_block_pack.py's): zero runs
+    of 15, 16, 31, 32, 47 and 48 before a nonzero (0-3 ZRLs), a nonzero at
+    position 63 (no EOB), the all-nonzero block, AC +-1023 and DC
+    differences +-2047, an empty block; then random dense blocks."""
+    rng = np.random.default_rng(21)
+    zz = np.zeros((n_slots, 64), np.int64)
+    for k, run in enumerate((15, 16, 31, 32, 47, 48)):
+        zz[k, 1 + run] = 3 - 6 * (k & 1)
+    zz[6, 63] = 1
+    zz[7, 1:] = rng.integers(1, 1024, 63) * rng.choice([-1, 1], 63)
+    zz[8, 1:] = 1023
+    zz[9, [1, 63]] = -1023
+    zz[:12, 0] = [0, 2047, -2047, 0, 2047, -2047, 5, -5, 1000, -1000, 0, 0]
+    zz[12:] = rng.integers(-1023, 1024, (n_slots - 12, 64))
+    return zz.astype(np.int16)
+
+
+@pytest.mark.parametrize("w_blk", [1, 8, 56])
+def test_block_pack_kernel_on_hand_made_blocks(cuda, w_blk):
+    """Kernel A against pack_blocks_plain on the hand-made blocks, with the
+    DC differences taken as the blocks' own DC (prev_same -1), a padding
+    slot and blocks that overflow the tier."""
+    n = 45
+    zz = torch.from_numpy(_hand_blocks(n))[None].repeat(2, 1, 1)
+    zz[1] = zz[1].flip(0)
+    dcdiff = zz[..., 0].to(torch.int32).contiguous()
+    tab = torch.tensor([k % 2 for k in range(n)], dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.int32)
+    valid[10] = 0
+    tabs = block_pack.packed_tables(engine.luts_from_tables(
+        *ref_encoder.standard_tables()))
+    pbuf, pbits = block_pack.pack_blocks_plain(
+        zz.reshape(-1, 64), dcdiff.reshape(-1), tab.repeat(2), tabs, w_blk,
+        valid=valid.repeat(2))
+    before = (block_pack.launches, block_pack.plain_calls)
+    buf, bits = block_pack.fused_block_pack(
+        zz.to(cuda), dcdiff.to(cuda), tab.to(cuda), tab.to(cuda),
+        valid.to(cuda), tuple(t.to(cuda) for t in tabs), w_blk)
+    torch.cuda.synchronize()
+    assert (block_pack.launches, block_pack.plain_calls) == \
+        (before[0] + 1, before[1])
+    assert torch.equal(bits.cpu().reshape(-1), pbits)
+    assert torch.equal(buf.cpu().reshape(-1, w_blk), pbuf)
+    assert (int(bits.max()) > 32 * w_blk) == (w_blk < 56)
+    assert int(bits[:, 10].abs().sum()) == 0
 
 
 def test_histogram_on_cuda_equals_cpu(cuda):
