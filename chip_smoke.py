@@ -98,7 +98,7 @@ def main() -> None:
              "NVIDIA GPU")
     from jpgenc_tpu_torch import api, decoder, engine, native
     from jpgenc_tpu_torch.container import parser
-    from jpgenc_tpu_torch.kernels import build
+    from jpgenc_tpu_torch.kernels import build, tile_sweep
     from jpgenc_tpu_torch.layout import make_layout
     from jpgenc_tpu_torch.ops import entropy, pack
     from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused,
@@ -1488,6 +1488,21 @@ def main() -> None:
         x16, *ops, tabs, 8), 10)
     sep_plain_ms = sync_ms(lambda: k1_dct.color_plain(x16, lay, plan.sep,
                                                       plan.q), 3)
+    # 4:2:2 and 4:4:4 at 1080p: the separable kernel in turns with K1 rows
+    sep_sampling_ms = {}
+    for sub_ in ("422", "444"):
+        pl_ = engine.get_plan(H, W, sub_, Q, "cuda")
+        kops_ = (pl_.layout, pl_.kdct, pl_.q)
+        t_ = [sync_ms(lambda: k1_dct.fused_pixels_to_scan(
+            x16, *kops_, variant=v_, sep=pl_.sep), 10)
+            for v_ in ("separable", "rows", "rows", "separable")]
+        sep_sampling_ms[sub_] = {"separable": [round(t_[0], 4),
+                                               round(t_[3], 4)],
+                                 "k1_rows": [round(t_[1], 4),
+                                             round(t_[2], 4)]}
+    # registers and spills of its three instantiations (phase 1 fails on
+    # any spill)
+    sep_ptxas = tile_sweep.ptxas_report(build.build_log, ("k1_color_kernel",))
     emit({"phase": "encode_batch_separable", "frames": len(sep_files),
           "launches": sep_launches, "plain_calls": plain,
           "first_call_s": round(first_s, 4), **rates(walls, len(sep_files)),
@@ -1500,6 +1515,7 @@ def main() -> None:
           "vs_k1_mismatch_frac": sep_vs_k1_frac,
           "files_decode_to_kernel_zz": True,
           "ms": [round(sep_ms, 4), round(sep_ms2, 4)],
+          "ms_422_444": sep_sampling_ms, "ptxas": sep_ptxas,
           "k1_rows_ms_same_window": [round(k1_again_ms, 4),
                                      round(k1_again_ms2, 4)],
           "k1a_ms_same_window": [round(k1a_again_ms, 4),
@@ -1769,6 +1785,7 @@ def main() -> None:
                       "<= 1e-4 of coefficients",
          "ms": round(sep_ms, 4), "plain_ms": round(sep_plain_ms, 4),
          "row_kernel_ms": round(k1_again_ms, 4),
+         "ms_422_444": sep_sampling_ms, "ptxas": sep_ptxas,
          **bound(x16.numel() + sep_b + slots * 128, col_ops),
          "separable_flop_ms": round(sep_own / F32_FLOP_PER_S * 1e3, 4),
          "library_ms": None},

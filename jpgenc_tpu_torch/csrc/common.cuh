@@ -133,16 +133,26 @@ __device__ __forceinline__ float luma_of(float r, float g, float b) {
                    __fmul_rn(0.114f, b));
 }
 
+// Cb and Cr before their + 128: the separable formulation's chroma samples
+// (k1_dct.py:212-214 folds the level shift in).
+__device__ __forceinline__ float cb_centred_of(float r, float g, float b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(-0.168735892f, r),
+                             __fmul_rn(-0.331264108f, g)),
+                   __fmul_rn(0.5f, b));
+}
+
+__device__ __forceinline__ float cr_centred_of(float r, float g, float b) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.5f, r),
+                             __fmul_rn(-0.418687589f, g)),
+                   __fmul_rn(-0.081312411f, b));
+}
+
 __device__ __forceinline__ float cb_of(float r, float g, float b) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(-0.168735892f, r),
-                                       __fmul_rn(-0.331264108f, g)),
-                             __fmul_rn(0.5f, b)), 128.0f);
+  return __fadd_rn(cb_centred_of(r, g, b), 128.0f);
 }
 
 __device__ __forceinline__ float cr_of(float r, float g, float b) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(0.5f, r),
-                                       __fmul_rn(-0.418687589f, g)),
-                             __fmul_rn(-0.081312411f, b)), 128.0f);
+  return __fadd_rn(cr_centred_of(r, g, b), 128.0f);
 }
 
 // Byte b of 48 raw bytes held as 12 little-endian words.
@@ -445,15 +455,19 @@ __device__ __forceinline__ void block_products(const float* xb,
 }
 
 // Four accumulators / their quantizers qv, round half away, as four int16
-// at d (8-byte aligned).
-__device__ __forceinline__ void store_quantized(const float (&a)[4],
-                                                float4 qv, int16_t* d) {
+// packed in two words (the first in the low half).
+__device__ __forceinline__ uint2 quantize4(const float (&a)[4], float4 qv) {
   const uint32_t v0 = static_cast<uint32_t>(round_div(a[0], qv.x));
   const uint32_t v1 = static_cast<uint32_t>(round_div(a[1], qv.y));
   const uint32_t v2 = static_cast<uint32_t>(round_div(a[2], qv.z));
   const uint32_t v3 = static_cast<uint32_t>(round_div(a[3], qv.w));
-  *reinterpret_cast<uint2*>(d) =
-      make_uint2((v0 & 0xffffu) | (v1 << 16), (v2 & 0xffffu) | (v3 << 16));
+  return make_uint2((v0 & 0xffffu) | (v1 << 16), (v2 & 0xffffu) | (v3 << 16));
+}
+
+// quantize4 stored at d (8-byte aligned).
+__device__ __forceinline__ void store_quantized(const float (&a)[4],
+                                                float4 qv, int16_t* d) {
+  *reinterpret_cast<uint2*>(d) = quantize4(a, qv);
 }
 
 // Steps 4 and 5 on xs and ks as the loaders left them (the caller has
@@ -610,6 +624,162 @@ __device__ __forceinline__ int16_t* gray_tile_product(
     store_quantized(acc[j], qv, zq + (bg + 16 * j) * 64 + 4 * cg);
   __syncthreads();
   return zq;
+}
+
+// Separable colour (K1 separable, k1_dct.cu's k1_color_kernel): the
+// reference's _color_kernel sequence, which subsamples after the products.
+// A thread block takes a tile of T MCUs inside one MCU row of one image
+// (grid: tiles per row, MCU rows, images) and works on two shared arrays,
+// ks [64][64] (KDCT_ZZ) and xs [T][SLOT]:
+//  1. load_sep_tile fills each MCU's slot with its three full-resolution
+//     planes, P = nb*64 samples each in Y-block order (block, row, column:
+//     the reference's mcu_pack): y = luma - 128, and cb, cr without + 128
+//     times the exact 1 / (hs*vs). Units of 16 pixels of one pixel row, 48
+//     bytes read by gather_row, neighbouring threads on neighbouring units;
+//     8 samples of a plane leave a unit as two 16-byte stores. The slot pad
+//     of 4 floats puts neighbouring MCUs in different bank groups.
+//  2. Luma: block_products over each luma block's 64 samples. Chroma:
+//     plane_products over all P samples of a plane, the operand row of
+//     sample k being KDCT_ZZ[cpos(k)], cpos(k) the chroma position k falls
+//     into. The reference multiplies the unscaled sample by sc = S_sub @
+//     KDCT_ZZ, whose row k is KDCT_ZZ[cpos(k)] * 1/(hs*vs) exactly (one
+//     power-of-two weight a row of S_sub; pinned by a CPU test): the
+//     scaled sample times the ks row is the same exact product, so each
+//     __fmaf_rn rounds as the reference's does and sc is never read.
+//  3. Every thread does the same FMAs: a chroma term costs what a luma term
+//     does, and a chroma plane has nb times a luma block's terms, so a luma
+//     thread takes NL MCUs and a chroma thread NL / nb. At the default tile
+//     64 threads run the luma blocks, 128 the chroma planes: 2048 FMAs each.
+// The tile, T = JPGENC_SEP_TILE * 4 / nb MCUs (32 luma blocks at the
+// default 8: 120 MCUs of a 1080p row fill 15 tiles of 4:2:0), and NL =
+// JPGENC_SEP_N are compile-time constants; kernels/separable_sweep.py
+// rebuilds with others and times them (PERF.md section 6);
+// ops/cuda/k1_dct.SEP_TILE mirrors JPGENC_SEP_TILE.
+#ifndef JPGENC_SEP_TILE
+#define JPGENC_SEP_TILE 8
+#endif
+#ifndef JPGENC_SEP_N
+#define JPGENC_SEP_N 8
+#endif
+
+template <int HS, int VS>
+struct SepGeo {
+  static constexpr int NB = HS * VS;             // luma blocks per MCU
+  static constexpr int P = NB * 64;              // samples of a plane
+  static constexpr int L = (NB + 2) * 64;        // coefficients per MCU
+  static constexpr int T = JPGENC_SEP_TILE * 4 / NB;   // MCUs a tile
+  static constexpr int NL = JPGENC_SEP_N;        // MCUs a luma thread
+  static constexpr int NC = NL / NB;             // MCUs a chroma thread
+  static constexpr int GL = T / NL, GC = T / NC; // MCU groups
+  static constexpr int LUMA = 16 * NB * GL;      // luma threads
+  static constexpr int THREADS = LUMA + 32 * GC;
+  static constexpr int MIN_BLOCKS = THREADS >= 768 ? 1 : 768 / THREADS;
+  static constexpr int SLOT = 3 * P + 4;         // floats per MCU slot
+  static constexpr size_t SMEM = 4 * (64 * 64 + static_cast<size_t>(T) * SLOT);
+  static_assert(NC >= 1 && NL % NB == 0 && T % NL == 0 && T % NC == 0 &&
+                    T % 2 == 0 && LUMA % 32 == 0,
+                "separable tile: T, NL and nb do not divide");
+};
+
+// One unit of 16 pixels of pixel row `row` of an MCU row into the planes:
+// HS = 2, the row of one MCU (slot), both its luma blocks of that row;
+// HS = 1, the row of two neighbouring MCUs (slot, slot + SLOT).
+template <int HS, int VS>
+__device__ __forceinline__ void convert_sep(const uint32_t (&w)[12],
+                                            float* slot, int row) {
+  using G = SepGeo<HS, VS>;
+  constexpr float kScale = 1.0f / G::NB;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float y[8], cb[8], cr[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int o = 3 * (8 * h + p);
+      const float r = byte_of(w, o), g = byte_of(w, o + 1),
+                  b = byte_of(w, o + 2);
+      y[p] = __fsub_rn(luma_of(r, g, b), 128.0f);
+      cb[p] = __fmul_rn(cb_centred_of(r, g, b), kScale);
+      cr[p] = __fmul_rn(cr_centred_of(r, g, b), kScale);
+    }
+    float* d = (HS == 2 ? slot + ((row >> 3) * 2 + h) * 64
+                        : slot + h * G::SLOT) + (row & 7) * 8;
+    store8(d, y);
+    store8(d + G::P, cb);
+    store8(d + 2 * G::P, cr);
+  }
+}
+
+// The T MCUs mx0 .. mx0+T-1 of MCU row my_i (those past mx-1 are skipped:
+// their slots hold garbage that no one stores). A unit inside the image
+// is three 16-byte or twelve 4-byte loads by vec (load_alignment); a unit
+// that crosses the right edge takes the clamped path; rows past H-1 read
+// row H-1 (the replicate pad).
+template <int HS, int VS>
+__device__ __forceinline__ void load_sep_tile(
+    const uint8_t* __restrict__ im, int H, int W, int vec, int mx, int my_i,
+    int mx0, float* xs, int tid) {
+  using G = SepGeo<HS, VS>;
+  constexpr int COLS = G::T * HS / 2;            // units per pixel row
+  for (int u = tid; u < COLS * 8 * VS; u += G::THREADS) {
+    const int cu = u % COLS, row = u / COLS;
+    const int m = cu * (2 / HS);                 // the unit's (first) MCU
+    if (mx0 + m >= mx) continue;
+    const int x = (mx0 + m) * 8 * HS;
+    uint32_t w[12];
+    gather_row(im, H, W, vec, x + 16 <= W, min(my_i * 8 * VS + row, H - 1),
+               x, w);
+    convert_sep<HS, VS>(w, xs + m * G::SLOT, row);
+  }
+}
+
+// The chroma counterpart of block_products where HS = 2: coefficients
+// 4*cg..4*cg+3 (kb = ks + 4*cg) of one plane of the N MCUs at xb, xb +
+// STEP, ..., each plane's 128 * VS samples in Y-block order. Samples 4i ..
+// 4i+3 of a block lie in one pixel row and fall into two chroma positions,
+// two samples each: per four k, two 16-byte ks reads and one sample read
+// per MCU, 2 + N shared loads for 16 * N FMAs. Every accumulator is one
+// __fmaf_rn chain from 0 with k ascending over all the plane's samples.
+template <int N, int STEP, int VS>
+__device__ __forceinline__ void plane_products(const float* xb,
+                                               const float* kb,
+                                               float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 1
+  for (int blk = 0; blk < 2 * VS; ++blk) {
+    // luma block (blk >> 1, blk & 1) covers chroma rows from
+    // (blk >> 1) * 8 / VS and chroma columns from (blk & 1) * 4
+    const float* kr = kb + ((blk >> 1) * (8 / VS) * 8 + (blk & 1) * 4) * 64;
+    const float* xr = xb + blk * 64;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {               // pixel row i >> 1
+      const float* kq = kr + (((i >> 1) / VS) * 8 + 2 * (i & 1)) * 64;
+      const float4 k0 = *reinterpret_cast<const float4*>(kq);
+      const float4 k1 = *reinterpret_cast<const float4*>(kq + 64);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(xr + j * STEP + 4 * i);
+        acc[j][0] = __fmaf_rn(x.x, k0.x, acc[j][0]);
+        acc[j][1] = __fmaf_rn(x.x, k0.y, acc[j][1]);
+        acc[j][2] = __fmaf_rn(x.x, k0.z, acc[j][2]);
+        acc[j][3] = __fmaf_rn(x.x, k0.w, acc[j][3]);
+        acc[j][0] = __fmaf_rn(x.y, k0.x, acc[j][0]);
+        acc[j][1] = __fmaf_rn(x.y, k0.y, acc[j][1]);
+        acc[j][2] = __fmaf_rn(x.y, k0.z, acc[j][2]);
+        acc[j][3] = __fmaf_rn(x.y, k0.w, acc[j][3]);
+        acc[j][0] = __fmaf_rn(x.z, k1.x, acc[j][0]);
+        acc[j][1] = __fmaf_rn(x.z, k1.y, acc[j][1]);
+        acc[j][2] = __fmaf_rn(x.z, k1.z, acc[j][2]);
+        acc[j][3] = __fmaf_rn(x.z, k1.w, acc[j][3]);
+        acc[j][0] = __fmaf_rn(x.w, k1.x, acc[j][0]);
+        acc[j][1] = __fmaf_rn(x.w, k1.y, acc[j][1]);
+        acc[j][2] = __fmaf_rn(x.w, k1.z, acc[j][2]);
+        acc[j][3] = __fmaf_rn(x.w, k1.w, acc[j][3]);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

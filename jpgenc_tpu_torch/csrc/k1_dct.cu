@@ -19,7 +19,10 @@
 //    product with KDCT_ZZ (the block-diagonal bd_y without its zeros) and per
 //    chroma plane one [nb*64] x [nb*64, 64] product with sc = S_sub @ KDCT_ZZ
 //    (box-mean subsampling folded in): (nb*64 + 2*nb*64) * 64 FMAs per MCU,
-//    49 152 in 4:2:0.
+//    49 152 in 4:2:0, twice the shared transform's. Tiles of MCUs inside one
+//    MCU row as k1_kernel's, common.cuh's separable loader and register
+//    tiles (load_sep_tile, block_products, plane_products), balanced so that
+//    every thread runs the same FMAs.
 //  * k1_gray_kernel replaces ::_gray_kernel.
 //
 // The TPU's two dense kernels multiply an MCU's bytes by one [768, 384]
@@ -43,9 +46,9 @@
 // What bounds them on the H100: k1_kernel and k1_repack_kernel, the block
 // product's shared-memory loads and FMAs and the quantizer's true divisions
 // (the measured times beside the bytes bound are in PERF.md section 6); the
-// repack wrapper, its torch prologue; the separable kernel, its chroma
-// threads (nb*64 FMAs each against 64 for a luma thread, two shared loads or
-// one L1 load per FMA) and the 3-byte pixel reads; gray, the products' FMA
+// repack wrapper, its torch prologue; the separable kernel, its own FMAs
+// (0.19 ms of them for 16 x 1080p 4:2:0 at the float32 peak against a bytes
+// bound of 0.06) and their shared-memory loads; gray, the products' FMA
 // issue, the quantizer's true divisions and the loader (0.153-0.1554 ms for
 // 16 x 1080p gray against 0.0634 for its FMAs at the float32 peak and a bytes
 // bound of 0.0297, NVIDIA H100 80GB HBM3 at 700 W; common.cuh's header).
@@ -54,8 +57,6 @@
 namespace {
 
 using namespace jpgenc;
-
-constexpr int kTile = 8;           // MCUs per thread block (separable)
 
 template <int HS, int VS>
 constexpr size_t smem_bytes() {                  // ks, then xs
@@ -116,85 +117,87 @@ k1_repack_kernel(const uint8_t* __restrict__ mcus, long long total,
   }
 }
 
-// sep [(1 + NB) * 64, 64] f32: rows 0..63 KDCT_ZZ (pixel -> zigzag
-// coefficient), rows 64.. the chroma operator sc.
+// Step 2 and the quantizer of the separable tile on xs and ks as
+// load_sep_tile and load_operator left them (the caller has synchronised):
+// luma thread (blk, mg, cg) owns coefficients 4*cg..4*cg+3 of block blk of
+// the NL MCUs mg, mg + GL, ...; chroma thread (plane, mg, cg) those of the
+// plane of the NC MCUs mg, mg + GC, .... Where there are two MCU groups or
+// more (all but 4:2:0's luma at the default tile), the two halves of a warp
+// take neighbouring groups, so their sample reads fall into different bank
+// groups. The quantized values replace xs as int16 zq [T][L], the MCUs'
+// coefficients in scan order: they are held in registers across the
+// barrier that frees xs. Every thread of the block must call it.
 template <int HS, int VS>
-__global__ void __launch_bounds__((HS * VS + 2) * 64)
-k1_color_kernel(const uint8_t* __restrict__ img, int H, int W, int mx,
-                int n_mcus, int n_slots, const float* __restrict__ sep,
-                const float* __restrict__ q, int16_t* __restrict__ zz_out) {
-  constexpr int NB = HS * VS;
-  constexpr int L = (NB + 2) * 64;
-  constexpr int P = NB * 64;                     // pixels per MCU
-  constexpr int MH = 8 * VS, MW = 8 * HS;
-  // planes y, cb, cr of every slot in Y-block order (block, row, column):
-  // the layout of the reference's mcu_pack, which sc's rows assume
-  __shared__ float ycc[kTile][3][P];
-  __shared__ float ks[64 * 64];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int g0 = blockIdx.x * kTile;
-  const uint8_t* im = img + static_cast<size_t>(n) * H * W * 3;
-
-  for (int i = tid; i < 64 * 64; i += L) ks[i] = sep[i];
-  for (int i = tid; i < kTile * P; i += L) {
-    const int s = i / P, e = i - s * P;
-    const int g = g0 + s;
-    float yv = 0.f, cb = 0.f, cr = 0.f;
-    if (g < n_mcus) {
-      const int my_i = g / mx, mx_i = g - my_i * mx;
-      const int blk = e >> 6, py = (e >> 3) & 7, px = e & 7;
-      const int y = min(my_i * MH + (blk / HS) * 8 + py, H - 1);
-      const int x = min(mx_i * MW + (blk % HS) * 8 + px, W - 1);
-      const uint8_t* p = im + (static_cast<size_t>(y) * W + x) * 3;
-      const float r = static_cast<float>(p[0]);
-      const float gg = static_cast<float>(p[1]);
-      const float b = static_cast<float>(p[2]);
-      // BT.601 full range with the level shift folded in (k1_dct.py:212-214),
-      // every product and sum rounded on its own, left to right
-      yv = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(0.299f, r),
-                                         __fmul_rn(0.587f, gg)),
-                               __fmul_rn(0.114f, b)), 128.0f);
-      cb = __fadd_rn(__fadd_rn(__fmul_rn(-0.168735892f, r),
-                               __fmul_rn(-0.331264108f, gg)),
-                     __fmul_rn(0.5f, b));
-      cr = __fadd_rn(__fadd_rn(__fmul_rn(0.5f, r),
-                               __fmul_rn(-0.418687589f, gg)),
-                     __fmul_rn(-0.081312411f, b));
-    }
-    ycc[s][0][e] = yv;
-    ycc[s][1][e] = cb;
-    ycc[s][2][e] = cr;
+__device__ __forceinline__ const int16_t* sep_tile_product(
+    float* xs, const float* ks, const float* __restrict__ q, int tid) {
+  using G = SepGeo<HS, VS>;
+  const int cg = tid & 15;
+  const bool luma = tid < G::LUMA;               // warp-uniform
+  const int bg = (luma ? tid : tid - G::LUMA) >> 4;
+  const int groups = luma ? G::GL : G::GC;
+  const int mg = bg % groups, blk = luma ? bg / groups : G::NB + bg / groups;
+  uint2 zv[G::NL];                               // chroma: the first NC
+  if (luma) {
+    float acc[G::NL][4];
+    block_products<G::NL, G::GL * G::SLOT>(xs + mg * G::SLOT + blk * 64,
+                                           ks + 4 * cg, acc);
+    const float4 qv =
+        __ldg(reinterpret_cast<const float4*>(q + blk * 64) + cg);
+#pragma unroll
+    for (int j = 0; j < G::NL; ++j) zv[j] = quantize4(acc[j], qv);
+  } else {
+    float acc[G::NC][4];
+    const float* xb = xs + mg * G::SLOT + (blk - G::NB + 1) * G::P;
+    if constexpr (HS == 1)
+      block_products<G::NC, G::GC * G::SLOT>(xb, ks + 4 * cg, acc);
+    else
+      plane_products<G::NC, G::GC * G::SLOT, VS>(xb, ks + 4 * cg, acc);
+    const float4 qv =
+        __ldg(reinterpret_cast<const float4*>(q + blk * 64) + cg);
+#pragma unroll
+    for (int j = 0; j < G::NC; ++j) zv[j] = quantize4(acc[j], qv);
+  }
+  __syncthreads();                               // xs becomes zq below
+  int16_t* zq = reinterpret_cast<int16_t*>(xs);
+  int16_t* d = zq + (mg * (G::NB + 2) + blk) * 64 + 4 * cg;
+  if (luma) {
+#pragma unroll
+    for (int j = 0; j < G::NL; ++j)
+      *reinterpret_cast<uint2*>(d + j * G::GL * G::L) = zv[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < G::NC; ++j)
+      *reinterpret_cast<uint2*>(d + j * G::GC * G::L) = zv[j];
   }
   __syncthreads();
+  return zq;
+}
 
-  const int blk = tid >> 6, c = tid & 63;        // warp-uniform blk
-  float acc[kTile];
-#pragma unroll
-  for (int s = 0; s < kTile; ++s) acc[s] = 0.f;
-  if (blk < NB) {                                // luma: this block's 64 terms
-    for (int k = 0; k < 64; ++k) {
-      const float w = ks[k * 64 + c];
-#pragma unroll
-      for (int s = 0; s < kTile; ++s)
-        acc[s] = __fmaf_rn(ycc[s][0][blk * 64 + k], w, acc[s]);
-    }
-  } else {                                       // chroma: all P pixels
-    const int plane = 1 + blk - NB;
-    const float* sc = sep + 64 * 64;
-    for (int k = 0; k < P; ++k) {
-      const float w = __ldg(sc + k * 64 + c);
-#pragma unroll
-      for (int s = 0; s < kTile; ++s)
-        acc[s] = __fmaf_rn(ycc[s][plane][k], w, acc[s]);
-    }
-  }
-  const float qc = q[tid];
-  int16_t* out = zz_out + static_cast<size_t>(n) * n_slots * 64;
-  for (int s = 0; s < kTile && g0 + s < n_mcus; ++s)
-    out[static_cast<size_t>(g0 + s) * L + tid] =
-        static_cast<int16_t>(round_div(acc[s], qc));
+// sep [(1 + NB) * 64, 64] f32: rows 0..63 KDCT_ZZ, rows 64.. the chroma
+// operator sc = S_sub @ KDCT_ZZ, which the kernel does not read (common.cuh:
+// the scaled samples times KDCT_ZZ give its products exactly).
+template <int HS, int VS>
+__global__ void __launch_bounds__(SepGeo<HS, VS>::THREADS,
+                                  SepGeo<HS, VS>::MIN_BLOCKS)
+k1_color_kernel(const uint8_t* __restrict__ img, int H, int W, int vec,
+                int mx, int n_slots, const float* __restrict__ sep,
+                const float* __restrict__ q, int16_t* __restrict__ zz_out) {
+  using G = SepGeo<HS, VS>;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* xs = ks + 64 * 64;
+
+  const int tid = threadIdx.x;
+  const int mx0 = blockIdx.x * G::T, my_i = blockIdx.y, n = blockIdx.z;
+  const uint8_t* im = img + static_cast<size_t>(n) * H * W * 3;
+  load_operator(sep, ks, tid, G::THREADS);
+  load_sep_tile<HS, VS>(im, H, W, vec, mx, my_i, mx0, xs, tid);
+  __syncthreads();
+  const int16_t* zq = sep_tile_product<HS, VS>(xs, ks, q, tid);
+  copy_zz(zq, min(G::T, mx - mx0) * G::L,
+          zz_out + static_cast<size_t>(n) * n_slots * 64 +
+              static_cast<size_t>(my_i * mx + mx0) * G::L,
+          tid, G::THREADS);
 }
 
 // Gray: the transform half of gray K1A (k1a_gray.cu) with a plain store;
@@ -283,10 +286,14 @@ cudaError_t launch(int variant, const Args& a) {
             static_cast<const uint8_t*>(a.src), total, n_mcus, a.n_slots, o,
             qf, out);
   } else if (variant == kSeparable) {
-    const dim3 grid((n_mcus + kTile - 1) / kTile, a.B);
-    k1_color_kernel<HS, VS><<<grid, L, 0, a.stream>>>(
-        static_cast<const uint8_t*>(a.src), a.H, a.W, mx, n_mcus, a.n_slots,
-        o, qf, out);
+    using G = SepGeo<HS, VS>;
+    if (my > 65535 || a.B > 65535) return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(k1_color_kernel<HS, VS>, G::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((mx + G::T - 1) / G::T, my, a.B);
+    k1_color_kernel<HS, VS><<<grid, G::THREADS, G::SMEM, a.stream>>>(
+        static_cast<const uint8_t*>(a.src), a.H, a.W,
+        load_alignment(a.src, 3 * a.W), mx, a.n_slots, o, qf, out);
   } else {
     return cudaErrorInvalidValue;
   }

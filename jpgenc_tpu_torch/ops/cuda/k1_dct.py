@@ -14,7 +14,11 @@ has three variants, one per Pallas kernel of the reference:
     where the reference takes it: frames whose MCU row is past ROW_GATE_BYTES;
   "separable" (replaces `_color_kernel`): BT.601, then one 64x64 product per
     luma block and one [nb*64, 64] product per chroma plane. Taken for every
-    colour frame when the module switch K1_DENSE is False.
+    colour frame when the module switch K1_DENSE is False. Tiles of
+    SEP_TILE * 4 / nb MCUs inside one MCU row; the kernel reads KDCT_ZZ, the
+    first 64 rows of sep, and never sc: its chroma samples carry the exact
+    1 / (hs*vs) that each row of sc holds (build_operators), so every
+    product, and so every sum, is the plain version's.
 
 Gray has one kernel (replaces `_gray_kernel`): each 8x8 block of
 (pixel - 128) times KDCT_ZZ, / q, round half away, over tiles of GRAY_TILE
@@ -93,6 +97,12 @@ ROW_GATE_BYTES = 4 << 20
 #: times JPGENC_GRAY_BPT (kernels/gray_sweep.py rebuilds with others)
 GRAY_TILE = 128
 
+#: MCUs a thread block of the separable kernel takes in 4:2:0, inside one MCU
+#: row (4:2:2 twice as many, 4:4:4 four times: 32 luma blocks):
+#: csrc/common.cuh's JPGENC_SEP_TILE (kernels/separable_sweep.py rebuilds
+#: with others)
+SEP_TILE = 8
+
 VARIANTS = ("rows", "repack", "separable")
 
 
@@ -128,7 +138,9 @@ def build_operators(layout, qtabs) -> tuple[np.ndarray, np.ndarray,
     """The separable operators of one layout (k1_dct.py:66-85; qtabs [2, 64]
     natural order): (bd_y [nb*64, nb*64] block-diagonal KDCT_ZZ, sc
     [nb*64, 64] = S_sub @ KDCT_ZZ, q_out [1, (nb+2)*64]) f32. Every row of
-    S_sub holds one weight, a power of two, so sc is exact in float32."""
+    S_sub holds one weight, a power of two, so sc is exact in float32: row k
+    is KDCT_ZZ[c] * (1 / (hs*vs)), c the chroma position sample k falls
+    into, which is how the separable kernel uses it."""
     c0 = layout.comps[0]
     nb = c0.hs * c0.vs
     zz = np.asarray(T.ZIGZAG)

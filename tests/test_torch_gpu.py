@@ -801,15 +801,40 @@ def test_k1_repack_kernel_equals_row_kernel(cuda, h, w, sub):
     assert k1_dct.launches_repack == before[1] + 1 + int(wide)
 
 
-@pytest.mark.parametrize("h,w,sub", CASES + WIDE_CASES[:1])
-@pytest.mark.parametrize("quality", [75, 95])
+# one MCU, one tile (40 MCUs of 4:2:0 are 640 px, 32 are 512), one MCU more
+# than a tile row, odd sizes, and row pitches 3*W that are a multiple of 16
+# (64, 512, 528, 640, 656, 1040), of 8 (136), of 4 (1028 px: 3084), of 2
+# (130, 62) or odd (53, 75)
+SHARED_CASES = [(16, 16), (8, 8), (16, 512), (16, 528), (16, 640), (16, 656),
+                (33, 1040), (40, 1028), (120, 136), (61, 130), (37, 53),
+                (33, 75), (48, 62), (100, 1337)]
+
+
+# the separable kernel's tiles: SEP_TILE MCUs of 4:2:0 (128 px), twice as
+# many of 4:2:2 and four times as many of 4:4:4 (256 px); one tile a row and
+# a tile plus one MCU (4:2:0: 144 px, 4:4:4: 264 px)
+T_S = k1_dct.SEP_TILE
+SEP_EDGES = [(16, 16 * T_S), (16, 16 * T_S + 16), (16, 32 * T_S),
+             (16, 32 * T_S + 8)]
+# the earlier frames at Q75 and Q95; every shared-transform edge and the
+# separable tile's edges in the three samplings, without and with DRI 7
+# (pad slots stay zero)
+SEPARABLE_CASES = (
+    [(h, w, sub, q, 0) for h, w, sub in CASES + WIDE_CASES[:1]
+     for q in (75, 95)] +
+    [(h, w, sub, 75, dri) for h, w in SHARED_CASES + SEP_EDGES
+     for sub in ("420", "422", "444") for dri in (0, 7)])
+
+
+@pytest.mark.parametrize("h,w,sub,quality,dri", SEPARABLE_CASES)
 def test_k1_separable_kernel_vs_plain_and_k1(cuda, monkeypatch, h, w, sub,
-                                             quality):
+                                             quality, dri):
     """The separable kernel against color_plain (they may differ only where
     the float64 value lies within 1e-4 of a rounding boundary) and against
-    the dense K1 under the knife-edge policy; K1_DENSE = False selects it."""
+    the dense K1 under the knife-edge policy; K1_DENSE = False selects it;
+    the slots past the scan (restart padding) stay zero."""
     imgs = np.stack([fixtures.synth_frame(h, w, seed=s) for s in (1, 2, 3)])
-    plan, ops, _ = _plan(h, w, sub, quality, 0)
+    plan, ops, _ = _plan(h, w, sub, quality, dri)
     lay = ops[0]
     x = torch.from_numpy(imgs).to(cuda)
     before = (k1_dct.launches_color, k1_dct.plain_calls)
@@ -818,6 +843,8 @@ def test_k1_separable_kernel_vs_plain_and_k1(cuda, monkeypatch, h, w, sub,
     torch.cuda.synchronize()
     assert (k1_dct.launches_color, k1_dct.plain_calls) == \
         (before[0] + 1, before[1])
+    assert tuple(zz.shape) == (3, k1_dct.n_slots_padded(lay), 64)
+    assert not zz[:, lay.n_scan:].any()
     plain = k1_dct.color_plain(x, lay, plan.sep, plan.q)
     d = zz != plain
     assert int((zz.int() - plain.int()).abs().max()) <= 1
@@ -832,8 +859,8 @@ def test_k1_separable_kernel_vs_plain_and_k1(cuda, monkeypatch, h, w, sub,
     kd, sc = plan.sep[:64].double(), plan.sep[64:].double()
     exact = torch.cat([(y.reshape(*y.shape[:2], nb, 64) @ kd).flatten(2),
                        cb @ sc, cr @ sc], dim=-1) / plan.q.double()
-    dist = ((exact - exact.floor()) - 0.5).abs().reshape(zz.shape)
-    assert bool((dist[d] < 1e-4).all())
+    dist = ((exact - exact.floor()) - 0.5).abs().reshape(3, lay.n_scan, 64)
+    assert bool((dist[d[:, :lay.n_scan]] < 1e-4).all())
     dense = k1_dct.fused_pixels_to_scan(x, *ops, variant="rows")
     dd = (zz.int() - dense.int()).abs()
     assert int(dd.max()) <= 1
@@ -842,15 +869,6 @@ def test_k1_separable_kernel_vs_plain_and_k1(cuda, monkeypatch, h, w, sub,
     monkeypatch.setattr(k1_dct, "K1_DENSE", False)
     assert torch.equal(plan.zz_scan(x)[0], zz)
     assert k1_dct.launches_color == before[0] + 2
-
-
-# one MCU, one tile (40 MCUs of 4:2:0 are 640 px, 32 are 512), one MCU more
-# than a tile row, odd sizes, and row pitches 3*W that are a multiple of 16
-# (64, 512, 528, 640, 656, 1040), of 8 (136), of 4 (1028 px: 3084), of 2
-# (130, 62) or odd (53, 75)
-SHARED_CASES = [(16, 16), (8, 8), (16, 512), (16, 528), (16, 640), (16, 656),
-                (33, 1040), (40, 1028), (120, 136), (61, 130), (37, 53),
-                (33, 75), (48, 62), (100, 1337)]
 
 
 @pytest.mark.parametrize("dri", [0, 1, 3, 7, 120])

@@ -12,8 +12,9 @@ same numpy inputs (literal seeds):
     differing coefficients.
 (e) the separable variant (`_color_kernel`): `color_plain` against the
     reference with its module switch `K1_DENSE` set to False at run time;
-    the operators (`build_operators`, `_subsample_matrix`) exact, the
-    coefficients under the same policy.
+    the operators (`build_operators`, `_subsample_matrix`) exact, sc's rows
+    equal to the scaled KDCT_ZZ rows the CUDA kernel multiplies by in its
+    place, the coefficients under the same policy.
 
 Also the selection rule, the explicit `variant=` argument, the wrapper's
 device rule and what `tables_from_reference` carries across.
@@ -190,8 +191,59 @@ def test_mcu_planar_is_the_reference_mcu_pack():
         np.testing.assert_array_equal(ours.reshape(ref.shape).numpy(), ref)
 
 
-@pytest.mark.parametrize("h,w,sub", SMALL + WIDE[:1])
-@pytest.mark.parametrize("quality", [75, 95])
+@pytest.mark.parametrize("sub", ["420", "422", "444"])
+def test_separable_chroma_rows_are_scaled_kdct_rows(sub):
+    """The separable kernel never reads sc: it multiplies each chroma sample,
+    scaled by 1/(hs*vs), by row cpos(k) of KDCT_ZZ, cpos as
+    csrc/common.cuh's plane_products computes it (4:4:4: block_products,
+    cpos(k) = k). That is the reference's product exactly only if row k of
+    sc is KDCT_ZZ[cpos(k)] * (1/(hs*vs)) bit for bit, as here."""
+    lay = make_layout(32, 48, sub, 0)
+    c0 = lay.comps[0]
+    hs, vs = c0.hs, c0.vs
+    k = np.arange(hs * vs * 64)
+    if hs == 1:
+        cpos = k
+    else:
+        blk, py, px = k >> 6, (k >> 3) & 7, k & 7
+        cpos = ((blk >> 1) * (8 // vs) + py // vs) * 8 + (blk & 1) * 4 \
+            + px // 2
+    kdct = k1_dct._KDCT_ZZ
+    want = kdct[cpos] * np.float32(1.0 / (hs * vs))
+    assert want.dtype == np.float32
+    ref_sc = np.asarray(jk1.build_operators(
+        lay, jeng.qtables_for_quality(75)[1])[1])
+    ours = k1_dct.build_operators(engine.L.make_layout(32, 48, sub, 0),
+                                  jeng.qtables_for_quality(75)[0])
+    sep = k1_dct.separable_operator(*ours[:2])
+    for sc in (ref_sc, sep[64:], k1_dct._sep_on(hs, vs, "cpu")[64:].numpy()):
+        np.testing.assert_array_equal(sc.view(np.uint32),
+                                      want.view(np.uint32))
+    np.testing.assert_array_equal(sep[:64].view(np.uint32),
+                                  kdct.view(np.uint32))
+
+
+def test_separable_tile_is_the_kernel_sources_default():
+    """k1_dct.SEP_TILE, by which the tests size the separable kernel's tile
+    edges, is the JPGENC_SEP_TILE that csrc/common.cuh compiles with."""
+    import os
+    import re
+
+    from jpgenc_tpu_torch.kernels import build
+    src = open(os.path.join(build._CSRC, "common.cuh")).read()
+    tile = re.search(r"#define JPGENC_SEP_TILE (\d+)", src)
+    assert tile and int(tile.group(1)) == k1_dct.SEP_TILE
+    assert "static constexpr int T = JPGENC_SEP_TILE * 4 / NB;" in src
+
+
+# every small frame at Q75 and Q95, and one 4:2:0 row of a separable tile
+# and one MCU (the kernel's tile edge)
+COLOR_CASES = [(q, h, w, sub) for q in (75, 95) for h, w, sub in
+               SMALL + WIDE[:1]] + [(75, 16, 16 * k1_dct.SEP_TILE + 16,
+                                     "420")]
+
+
+@pytest.mark.parametrize("quality,h,w,sub", COLOR_CASES)
 def test_color_plain_vs_color_kernel_interpret(h, w, sub, quality,
                                                monkeypatch):
     img = synth_frame(h, w, seed=13)
