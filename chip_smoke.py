@@ -28,7 +28,15 @@ reset just before it and read just after:
     k1_dct.K1_DENSE = False;
   * islow: the libjpeg-exact integer path (torch ops -> kernel A -> kernel
     B), one 1080p frame and small odd sizes in every mode, against the numpy
-    reference (ref.islow + ref.encoder) byte for byte.
+    reference (ref.islow + ref.encoder) byte for byte;
+  * the file-driven entry points: the 16 frames through stage_batch (the
+    pinned side-stream upload), equal to the fused path's files; 32 RGB
+    1080p PPMs and 4 gray 720p PGMs through `python -m jpgenc_tpu_torch
+    batch --device cuda` in a subprocess (three chunks, one shape change,
+    the next chunk staged while one encodes; launch counters printed by the
+    subprocess at exit), each file equal to encode_batch's, a resume that
+    skips all 36 and a CLI decode equal to api.decode; and bench_torch.py
+    with the headline and decode rows at a batch of 16.
 
 Every output file is checked by the repo's own means: the C++ scan decoder,
 with the file's own tables, returns the kernel's coefficients exactly, and
@@ -1595,6 +1603,165 @@ def main() -> None:
           "zz_islow_ms_one_1080p_frame": round(islow_zz_ms, 4),
           "small_cases": n_islow, "bytes_equal_numpy_reference": True,
           "plain_calls": 0})
+
+    # --- phase 18: stage_batch, the pinned side-stream upload ----------------
+    t_phase = time.perf_counter()
+    reset_counters()
+    staged = mesh.stage_batch(imgs16, quality=Q, device="cuda")
+    staged_files = mesh.encode_batch(imgs16, quality=Q, device="cuda",
+                                     staged=staged)
+    launches, plain = read_counters()
+    if {k for k, v in launches.items() if v} != {"k1a_fused", "seg_merge"} \
+            or plain:
+        fail(f"stage_batch path: launches {launches}, plain calls {plain}")
+    if not (staged[1][0].is_cuda and staged[1][0].is_contiguous()
+            and isinstance(staged[1][1], torch.cuda.Event)):
+        fail("stage_batch did not return a device tensor and a CUDA event")
+    if staged_files != files:
+        fail("files encoded through stage_batch differ from (a)'s")
+    stage_walls, numpy_walls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mesh.encode_batch(imgs16, quality=Q, device="cuda",
+                          staged=mesh.stage_batch(imgs16, quality=Q,
+                                                  device="cuda"))
+        stage_walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        mesh.encode_batch(imgs16, quality=Q, device="cuda")
+        numpy_walls.append(time.perf_counter() - t0)
+    emit({"phase": "stage_batch", "frames": len(staged_files),
+          "launches": launches, "plain_calls": plain,
+          "files_equal_fused_path": True,
+          "staged_wall_s": [round(t, 4) for t in stage_walls],
+          "numpy_wall_s": [round(t, 4) for t in numpy_walls],
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+    # --- phase 19: the CLI's batch driver over files --------------------------
+    # 32 RGB 1080p PPMs and 4 gray 720p PGMs, chunks of 16: the gray chunk,
+    # then two RGB chunks (one shape change), each staged while the one
+    # before it encodes. The first run is `python -m jpgenc_tpu_torch batch`
+    # through runpy (what -m does) with the launch counters printed at exit;
+    # the second is the module itself and must skip every file.
+    import os
+    import tempfile
+
+    from jpgenc_tpu_torch import io as jio
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    rgb32 = np.concatenate([imgs16, imgs16[:, :, ::-1]])
+    gray4 = np.ascontiguousarray(imgs16[:4, :720, :1280, 1])
+    want = dict(zip((f"rgb{i:02d}" for i in range(32)),
+                    files + mesh.encode_batch(rgb32[16:], quality=Q,
+                                              device="cuda")))
+    want.update(zip((f"gray{i}" for i in range(4)),
+                    mesh.encode_batch(gray4, quality=Q, device="cuda")))
+    counted_cli = (
+        "import atexit, json, runpy, sys\n"
+        "from jpgenc_tpu_torch.ops.cuda import k1a_fused, seg_merge\n"
+        "from jpgenc_tpu_torch.ops.cuda import k1_dct, block_pack, recon\n"
+        "def report():\n"
+        "    mods = (k1a_fused, seg_merge, k1_dct, block_pack, recon)\n"
+        "    print('COUNTERS ' + json.dumps({\n"
+        "        'k1a_fused': k1a_fused.launches,\n"
+        "        'k1a_gray': k1a_fused.launches_gray,\n"
+        "        'seg_merge': seg_merge.launches,\n"
+        "        'other': k1_dct.launches + k1_dct.launches_gray\n"
+        "                 + block_pack.launches + recon.launches,\n"
+        "        'plain_calls': sum(m.plain_calls for m in mods)}),\n"
+        "        file=sys.stderr)\n"
+        "atexit.register(report)\n"
+        "sys.argv = ['jpgenc_tpu_torch'] + sys.argv[1:]\n"
+        "runpy.run_module('jpgenc_tpu_torch', run_name='__main__',\n"
+        "                 alter_sys=True)\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for name in want:
+            idx = int(name[-2:] if name.startswith("rgb") else name[-1])
+            arr = rgb32[idx] if name.startswith("rgb") else gray4[idx]
+            jio.save(os.path.join(src, name + (".ppm" if arr.ndim == 3
+                                               else ".pgm")), arr)
+        write_s = time.perf_counter() - t_phase
+        args = ["batch", src, out, "--device", "cuda", "--chunk", "16"]
+        t0 = time.perf_counter()
+        r1 = subprocess.run([sys.executable, "-c", counted_cli, *args],
+                            cwd=root, capture_output=True, text=True,
+                            timeout=600)
+        batch_s = time.perf_counter() - t0
+        if r1.returncode != 0:
+            fail(f"cli batch exited {r1.returncode}: {r1.stderr[-2000:]}")
+        cli_counts = json.loads(
+            [ln for ln in r1.stderr.splitlines()
+             if ln.startswith("COUNTERS ")][-1].split(" ", 1)[1])
+        first = json.loads(r1.stdout.strip().splitlines()[-1])
+        if (first["images"], first["done"], first["skipped"]) != (36, 36, 0):
+            fail(f"cli batch summary {first}")
+        if cli_counts["k1a_fused"] != 2 or cli_counts["k1a_gray"] != 1 \
+                or cli_counts["seg_merge"] != 3 or cli_counts["other"] \
+                or cli_counts["plain_calls"]:
+            fail(f"cli batch launches {cli_counts} (expected 2 K1A, 1 gray "
+                 f"K1A, 3 merge tails, nothing else)")
+        for name, data in want.items():
+            with open(os.path.join(out, name + ".jpg"), "rb") as f:
+                if f.read() != data:
+                    fail(f"cli batch file {name}.jpg != encode_batch's")
+        with open(os.path.join(out, "manifest.jsonl")) as f:
+            n_lines = len(f.readlines())
+        if n_lines != 36:
+            fail(f"manifest has {n_lines} lines, expected 36")
+        t0 = time.perf_counter()
+        r2 = subprocess.run([sys.executable, "-m", "jpgenc_tpu_torch", *args],
+                            cwd=root, capture_output=True, text=True,
+                            timeout=600)
+        resume_s = time.perf_counter() - t0
+        if r2.returncode != 0:
+            fail(f"cli batch resume exited {r2.returncode}: "
+                 f"{r2.stderr[-2000:]}")
+        second = json.loads(r2.stdout.strip().splitlines()[-1])
+        if (second["done"], second["skipped"]) != (0, 36):
+            fail(f"cli batch resume summary {second}")
+        back = os.path.join(tmp, "back.ppm")
+        r3 = subprocess.run([sys.executable, "-m", "jpgenc_tpu_torch",
+                             "decode", os.path.join(out, "rgb17.jpg"), back,
+                             "--device", "cuda"],
+                            cwd=root, capture_output=True, text=True,
+                            timeout=600)
+        if r3.returncode != 0:
+            fail(f"cli decode exited {r3.returncode}: {r3.stderr[-2000:]}")
+        if not np.array_equal(jio.load(back),
+                              api.decode(want["rgb17"], device="cuda")):
+            fail("cli decode pixels != api.decode's")
+    emit({"phase": "cli_batch", "files": len(want), "chunks": 3,
+          "launches": cli_counts, "summary": first, "resume": second,
+          "files_equal_encode_batch": True, "manifest_lines": n_lines,
+          "write_inputs_s": round(write_s, 1),
+          "batch_s": round(batch_s, 1), "resume_s": round(resume_s, 1),
+          "decode_equal_api": True,
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+    # --- phase 20: bench_torch.py, the headline and decode rows ----------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rb = subprocess.run(
+            [sys.executable, os.path.join(root, "bench_torch.py"), "--rows",
+             "1080p_420_q75,decode_1080p", "--batch", "16", "--detail",
+             os.path.join(tmp, "detail.json")],
+            cwd=root, capture_output=True, text=True, timeout=600)
+    if rb.returncode != 0:
+        fail(f"bench_torch.py exited {rb.returncode}: {rb.stderr[-2000:]}")
+    bench_line = rb.stdout.strip().splitlines()[-1]
+    bench = json.loads(bench_line)
+    missing = {"metric", "value", "unit", "backend", "power_limit_w",
+               "configs"} - set(bench)
+    if missing or len(bench_line) >= 1900 or "vs_baseline" in bench \
+            or not bench["backend"].startswith("cuda") \
+            or set(bench["configs"]) != {"1080p_420_q75", "decode_1080p"} \
+            or not bench["value"] > 0:
+        fail(f"bench_torch.py line: {bench_line[:500]} (missing {missing})")
+    emit({"phase": "bench_torch", "line_chars": len(bench_line),
+          "value": bench["value"], "configs": bench["configs"],
+          "seconds": round(time.perf_counter() - t_phase, 1)})
 
     if any(m == "jax" or m.startswith(("jax.", "jpgenc_tpu."))
            or m == "jpgenc_tpu" for m in sys.modules):

@@ -32,6 +32,7 @@ and the layout's symbol plan and scan gather.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -193,18 +194,60 @@ def tiers_for(layout, quality: int) -> list[tuple[int, int]]:
     return [t for i, t in enumerate(tiers) if t not in tiers[:i]]
 
 
+#: bytes that to_host_async has copied to the host since the last reset (the
+#: bench's d2h_bytes; a counter like the wrappers' launch counts)
+fetched_bytes = 0
+
+
+class HostCopy(NamedTuple):
+    """A device -> host copy in flight (the handle of to_host_async): the
+    host tensor it lands in and, for a CUDA source, the event recorded
+    behind the copy on the source's stream."""
+    host: torch.Tensor
+    event: object = None
+
+    def wait(self) -> np.ndarray:
+        """Block until the copy has landed; the host data as numpy (a view
+        of this handle's own buffer, which no later copy reuses)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def to_host_async(t: torch.Tensor) -> HostCopy:
+    """Start copying t to the host and return at once (the counterpart of
+    jax.Array.copy_to_host_async, engine.py:567-587): for a CUDA tensor, a
+    non_blocking copy on the current stream into a pinned buffer of its own
+    and an event recorded behind it, so the copy starts the moment the
+    kernels before it finish and the caller blocks only in wait(). Each
+    call allocates its buffer (PyTorch's caching host allocator recycles
+    pinned blocks only after they are freed and their copies are done), so
+    the arrays of an earlier fetch, which are views, are never overwritten.
+    A CPU tensor is already on the host: it is its own copy."""
+    global fetched_bytes
+    fetched_bytes += t.numel() * t.element_size()
+    if t.device.type != "cuda":
+        return HostCopy(t)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return HostCopy(host, event)
+
+
 def combined_fetch(wstream: torch.Tensor, nbits: torch.Tensor,
-                   ovf: torch.Tensor, k: int) -> tuple[np.ndarray, int]:
-    """Copy (word prefix [B, k], nbits [B, n_seg], ovf [B]) to the host in
-    ONE transfer (engine.py:558-594). Returns (array, k) for split_fetch."""
+                   ovf: torch.Tensor, k: int) -> tuple[HostCopy, int]:
+    """Start ONE copy of (word prefix [B, k], nbits [B, n_seg], ovf [B]) to
+    the host (engine.py:558-594) and return (handle, k): handle.wait()
+    gives the array for split_fetch."""
     k = min(k, wstream.shape[-1])
     packed = torch.cat([wstream[:, :k], nbits.to(torch.int32),
                         ovf.to(torch.int32)[:, None]], dim=1)
-    return packed.cpu().numpy(), k
+    return to_host_async(packed), k
 
 
 def split_fetch(arr: np.ndarray, k: int, n_seg: int):
-    """Host unpack of a combined_fetch copy -> (u_words_i32 [..., k],
+    """Host unpack of a combined_fetch array -> (u_words_i32 [..., k],
     nbits [..., n_seg], ovf bool [...])."""
     return (arr[..., :k], arr[..., k:k + n_seg],
             arr[..., k + n_seg] != 0)
@@ -282,8 +325,11 @@ class EncodePlan(nn.Module):
                 getattr(sp, name).astype(np.int32)).to(dev))
         self.register_buffer("scan_gather", torch.from_numpy(
             make_scan_gather(layout).astype(np.int64)).to(dev))
-        #: adaptive length (u32 words) of the speculative one-copy fetch
+        #: adaptive length (u32 words) of the speculative one-copy fetch;
+        #: the plan is shared through get_plan's cache, so the guess is read
+        #: and written under a lock (each fetch keeps its own copy, k)
         self.prefix_guess = 1024
+        self._guess_lock = threading.Lock()
 
     @property
     def standard_tables(self) -> tuple:
@@ -343,7 +389,8 @@ class EncodePlan(nn.Module):
         as packed tables with a leading image dimension on the plan's
         device, for pass 2)."""
         n_tabs = 1 if self.layout.is_gray else 2
-        per_img = [tables_from_freq(f, n_tabs) for f in hist.cpu().numpy()]
+        freqs = to_host_async(hist).wait()
+        per_img = [tables_from_freq(f, n_tabs) for f in freqs]
         return per_img, device_tables(*zip(*per_img), self.q.device)
 
     def entropy_from_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor, tables,
@@ -358,19 +405,23 @@ class EncodePlan(nn.Module):
 
     def fetch(self, outs, cap_u: int):
         """One host copy of (stream prefix, nbits, ovf) for every image,
-        refetching the prefix only when the adaptive guess fell short.
-        Returns [(u_words, nbits, ok)] per image; ok is False when the image
-        overflowed its block tier or the stream capacity."""
+        refetching the prefix only when the adaptive guess fell short; both
+        copies go through to_host_async. Returns [(u_words, nbits, ok)] per
+        image; ok is False when the image overflowed its block tier or the
+        stream capacity."""
         wstream, nbits, ovf = outs
-        arr, k = combined_fetch(wstream, nbits, ovf, self.prefix_guess)
-        up, nb, ov = split_fetch(arr, k, nbits.shape[-1])
+        with self._guess_lock:
+            guess = self.prefix_guess
+        handle, k = combined_fetch(wstream, nbits, ovf, guess)
+        up, nb, ov = split_fetch(handle.wait(), k, nbits.shape[-1])
         need = pack.seg_nwords_aligned(nb.astype(np.int64),
                                        self.walign).sum(axis=-1)
         ok = ~ov & (need <= cap_u // 4)
         t = int(need[ok].max()) if ok.any() else 0
         if t > k:
-            up = wstream[:, :t].cpu().numpy()
-        self.prefix_guess = max(t, 1024)
+            up = to_host_async(wstream[:, :t]).wait()
+        with self._guess_lock:
+            self.prefix_guess = max(t, 1024)
         return [(up[i], nb[i], bool(ok[i])) for i in range(len(nb))]
 
     def finalize(self, outs, cap_u: int) -> list[bytes | None]:

@@ -1,8 +1,10 @@
 """Batched encode on one device (counterpart of jpgenc_tpu/parallel/mesh.py
-`encode_batch`, mesh.py:371-474, without sharding or the host exchange:
-data-parallel and stripe distribution over several GPUs are ROADMAP.md
-Queue 1 item 8)."""
+`stage_batch` and `encode_batch`, mesh.py:357-474, without sharding or the
+host exchange: data-parallel and stripe distribution over several GPUs are
+ROADMAP.md Queue 1 item 4)."""
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -14,9 +16,69 @@ from jpgenc_tpu_torch.engine import (as_device_batch, get_plan,
 from jpgenc_tpu_torch.ops.pack import w_blk_for_quality
 
 
+_upload_streams: dict[torch.device, torch.cuda.Stream] = {}
+_upload_lock = threading.Lock()
+
+
+def _upload_stream(dev: torch.device):
+    """The side stream stage_batch uploads on, one per device."""
+    with _upload_lock:
+        if dev not in _upload_streams:
+            _upload_streams[dev] = torch.cuda.Stream(dev)
+        return _upload_streams[dev]
+
+
+def stage_batch(imgs, quality: int = 75, subsampling: str = "420",
+                restart_interval: int = 0, device="cuda"):
+    """Start the host -> device upload of a [B, H, W(, 3)] uint8 batch and
+    return the staged handle for encode_batch(..., staged=...):
+    (imgs, (tensor, event)).
+
+    On CUDA the batch is copied into pinned memory and uploaded with
+    non_blocking=True on a side stream, with an event recorded behind the
+    copy, so the call returns while the bytes cross: staging batch k+1
+    while batch k encodes overlaps upload with compute (the double-buffered
+    input of batch.run_batch). On the CPU the tensor is the batch itself
+    and the event is None. The plan for the batch's geometry is built here
+    too, as the reference's _batch_setup does."""
+    cfg = config.EncodeConfig(quality=quality, subsampling=subsampling,
+                              restart_interval=restart_interval)
+    dev = resolve_device(device)
+    imgs = np.ascontiguousarray(imgs)
+    host = as_device_batch(imgs, torch.device("cpu"))
+    get_plan(host.shape[1], host.shape[2],
+             "gray" if host.dim() == 3 else cfg.subsampling, cfg.quality,
+             str(dev), cfg.restart_interval)
+    if dev.type != "cuda":
+        return imgs, (host, None)
+    pinned = host.pin_memory()
+    stream = _upload_stream(dev)
+    with torch.cuda.stream(stream):
+        t = pinned.to(dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return imgs, (t, event)
+
+
+def _staged_tensor(staged, dev: torch.device) -> torch.Tensor:
+    """The device batch of a stage_batch handle, made safe to use on the
+    current stream: the stream waits for the upload's event, and the tensor
+    is marked as used there, so the caching allocator does not hand its
+    memory out while the current stream's kernels still read it."""
+    t, event = staged
+    if t.device != dev:
+        raise ValueError(f"staged batch lives on {t.device}, not on {dev}")
+    if event is not None:
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(event)
+        t.record_stream(stream)
+    return t
+
+
 def encode_batch(imgs, quality: int = 75, subsampling: str = "420",
                  restart_interval: int = 0, optimize: bool = False,
-                 dct_method: str = "float", device="cuda") -> list[bytes]:
+                 dct_method: str = "float", device="cuda", staged=None
+                 ) -> list[bytes]:
     """Encode a [B, H, W, 3] RGB or [B, H, W] gray uint8 batch on `device`;
     one JFIF bytestring per image, identical to per-image `api.encode`, with
     every mode it takes (restart_interval, optimize, dct_method).
@@ -30,12 +92,18 @@ def encode_batch(imgs, quality: int = 75, subsampling: str = "420",
     per-image histograms, the host builds the tables, pass 2 codes the
     cached coefficients with per-image tables. With islow and the standard
     tables pass 2 codes them with the shared tables (mesh.py:420-422).
-    Whenever coefficients are cached the worst-tier retry reuses them."""
+    Whenever coefficients are cached the worst-tier retry reuses them.
+
+    staged takes the result of stage_batch(imgs, ...) to use an upload
+    already in flight (its batch replaces imgs); the files are the same
+    bytes as without it."""
     cfg = config.EncodeConfig(quality=quality, subsampling=subsampling,
                               restart_interval=restart_interval,
                               optimize_huffman=optimize, dct_method=dct_method)
     dev = resolve_device(device)
-    if not isinstance(imgs, torch.Tensor):
+    if staged is not None:
+        imgs = _staged_tensor(staged[1], dev)
+    elif not isinstance(imgs, torch.Tensor):
         imgs = np.ascontiguousarray(imgs)
     x = as_device_batch(imgs, dev)
     mode = "gray" if x.dim() == 3 else cfg.subsampling

@@ -234,7 +234,8 @@ def test_fetch_split_equals_reference():
     wstream = torch.arange(2 * 40, dtype=torch.int32).reshape(2, 40)
     nbits = torch.tensor([[77], [1200]], dtype=torch.int32)
     ovf = torch.tensor([False, True])
-    arr, k = teng.combined_fetch(wstream, nbits, ovf, 16)
+    handle, k = teng.combined_fetch(wstream, nbits, ovf, 16)
+    arr = handle.wait()
     assert k == 16 and arr.shape == (2, 16 + 1 + 1)
     ours = teng.split_fetch(arr, k, 1)
     theirs = jeng.split_fetch(arr, k, 1)
@@ -563,6 +564,14 @@ def test_metrics_equal_reference():
     assert tm.psnr(a, a) == jm.psnr(a, a) == float("inf")
     assert tm.psnr(a, b, peak=1.0) == jm.psnr(a, b, peak=1.0)
     assert tm.bpp(b"x" * 1234, 20, 30) == jm.bpp(b"x" * 1234, 20, 30)
+
+
+@pytest.mark.parametrize("h,w,sub,dri", LAYOUTS)
+def test_flops_bytes_estimate_equals_reference(h, w, sub, dri):
+    from jpgenc_tpu.utils.profiling import flops_bytes_estimate as jfb
+    from jpgenc_tpu_torch.layout import make_layout as tmake
+    from jpgenc_tpu_torch.utils.profiling import flops_bytes_estimate as tfb
+    assert tfb(tmake(h, w, sub, dri)) == jfb(make_layout(h, w, sub, dri))
 
 
 def test_lru_cache_equals_reference():

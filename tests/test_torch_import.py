@@ -1,8 +1,10 @@
 """The port imports neither JAX nor the JAX package: importing every module
 of `jpgenc_tpu_torch` and running CPU encodes (colour, gray, optimize) and
-decodes of their files (one file, a batch, the float64 reference) leaves `jax` and `jpgenc_tpu` out of sys.modules (checked in a fresh
-interpreter, since this test process imports both), and no source file of
-the port or of chip_smoke.py names either in an import."""
+decodes of their files (one file, a batch, the float64 reference), the
+batch driver over PPM files and `python -m jpgenc_tpu_torch --help` leave
+`jax` and `jpgenc_tpu` out of sys.modules (checked in fresh interpreters,
+since this test process imports both), and no source file of the port, of
+bench_torch.py or of chip_smoke.py names either in an import."""
 import os
 import pathlib
 import re
@@ -36,6 +38,17 @@ for img in (rgb, rgb[..., 1].copy()):
         assert all(np.array_equal(b, px) for b in both)
         assert np.abs(px.astype(int)
                       - exact_decode(data).astype(int)).max() <= 3
+import os, tempfile
+from jpgenc_tpu_torch import io
+from jpgenc_tpu_torch.batch import run_batch
+with tempfile.TemporaryDirectory() as d:
+    paths = [os.path.join(d, f"{i}.ppm") for i in range(3)]
+    for i, p in enumerate(paths):
+        io.save(p, fixtures.synth_frame(16, 24, seed=i))
+    outs = [p[:-4] + ".jpg" for p in paths]
+    res = run_batch(paths, outs, os.path.join(d, "m.jsonl"), chunk_size=2,
+                    device="cpu")
+    assert res.done == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jpgenc_tpu"))
 print("MODULES", len(names), "JAX", bad)
@@ -58,15 +71,47 @@ _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|jpgenc_tpu)\b(?!_)", re.M)
 
 
+_HELP_PROBE = r"""
+import runpy, sys
+sys.argv = ["jpgenc_tpu_torch", "--help"]
+try:
+    runpy.run_module("jpgenc_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "jpgenc_tpu"))
+print("JAX", bad)
+"""
+
+
+def test_module_help_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    r = subprocess.run([sys.executable, "-m", "jpgenc_tpu_torch", "--help"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    for cmd in ("encode", "batch", "decode", "bench", "rd-curve"):
+        assert cmd in r.stdout
+    r = subprocess.run([sys.executable, "-c", _HELP_PROBE], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "JAX []"
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "jpgenc_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "bench_torch.py", ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"jpgenc_tpu_torch/decoder.py", "jpgenc_tpu_torch/ref/decoder.py",
             "jpgenc_tpu_torch/ops/cuda/recon.py",
             "jpgenc_tpu_torch/utils/metrics.py",
-            "jpgenc_tpu_torch/utils/lru.py"} <= names
+            "jpgenc_tpu_torch/utils/lru.py", "jpgenc_tpu_torch/io.py",
+            "jpgenc_tpu_torch/batch.py", "jpgenc_tpu_torch/cli.py",
+            "jpgenc_tpu_torch/__main__.py",
+            "jpgenc_tpu_torch/utils/profiling.py", "bench_torch.py",
+            "chip_smoke.py"} <= names
     assert len(files) >= 31 and offenders == []
 
 
