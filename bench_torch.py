@@ -17,10 +17,12 @@ so that the records line up: qsweep_dri (Q10-95 under DRI 120, timed
 round-robin), 1080p_422_q75, 1080p_444_q75, 1080p_islow_q75,
 1080p_420_q75_optimized (with a pass-1 / tables / pass-2 split),
 gray512_q75, 4k_optimized, decode_1080p (to_device, download, single,
-single_dri) and e2e_upload (through stage_batch, beside the same batch
-encoded from numpy). --size scales every row: the gray row keeps 512/1080
-of the height, the 4k row is twice the size in each dimension. The headline
-always runs; --rows picks the others.
+single_dri), e2e_upload (through stage_batch, beside the same batch
+encoded from numpy) and batch_sharded (bench.py's c11: 3 chunks of the
+frames through stage_batch / encode_batch(staged=) on every visible card,
+double-buffered, e2e_mpix_per_s of the median of 5 passes). --size scales every row: the gray row
+keeps 512/1080 of the height, the 4k row is twice the size in each
+dimension. The headline always runs; --rows picks the others.
 
 Per row: mpix_per_s (host clock, median), device_only_mpix_per_s (CUDA
 events around the row's device stages, nothing fetched; "not measured" on
@@ -52,7 +54,7 @@ import numpy as np  # noqa: E402
 
 ROWS = ("1080p_420_q75", "qsweep_dri", "1080p_422_q75", "1080p_444_q75",
         "1080p_islow_q75", "1080p_420_q75_optimized", "gray512_q75",
-        "4k_optimized", "decode_1080p", "e2e_upload")
+        "4k_optimized", "decode_1080p", "e2e_upload", "batch_sharded")
 QSWEEP = (10, 25, 50, 75, 90, 95)
 UPLOAD = 16     # distinct frames made on the host, tiled on the device
 ITERS = 10      # timed calls a row; the rows report medians
@@ -509,6 +511,46 @@ def main(argv=None) -> int:
                 "note": "stage_batch double-buffered upload; numpy_*: the "
                         "same batch from numpy without stage_batch"}
 
+    def sharded_row(passes=5):
+        """bench.py's c11: 3 chunks of the U host frames through stage_batch
+        / encode_batch(staged=) over every visible card (MeshConfig()),
+        chunk k+1 staged while chunk k encodes; after a warm staged call
+        (every entry's pinned buffers and plans made), the median of
+        `passes` such passes, host clock."""
+        from jpgenc_tpu_torch.config import MeshConfig
+        devices = mesh.resolve_devices(MeshConfig(), dev)
+
+        def stage():
+            return mesh.stage_batch(frames, quality=75, devices=devices,
+                                    device=dev)
+        ref = mesh.encode_batch(frames, quality=75, devices=devices,
+                                device=dev, staged=stage())
+        if ref != outs[:U]:
+            raise RuntimeError("batch_sharded files differ from the "
+                               "headline's")
+        n_chunks, walls = 3, []
+        for _ in range(passes):
+            staged = stage()
+            t0 = time.perf_counter()
+            for k in range(n_chunks):
+                cur = staged
+                if k + 1 < n_chunks:
+                    staged = stage()
+                files = mesh.encode_batch(frames, quality=75,
+                                          devices=devices, device=dev,
+                                          staged=cur)
+            walls.append(time.perf_counter() - t0)
+            if files != ref:
+                raise RuntimeError("batch_sharded staged files differ")
+        return {"images": n_chunks * U, "shape": [H, W], "passes": passes,
+                "devices": [str(d) for d in devices],
+                "e2e_mpix_per_s": bench.mpix(n_chunks * U, H, W,
+                                             _median(walls)),
+                "wall_ms_quartiles": [1e3 * t for t in _quartiles(walls)],
+                "note": "3 chunks a pass, double-buffered upload through "
+                        "stage_batch, median pass after a warm call "
+                        "(bench.py c11)"}
+
     for name, fn in (("qsweep_dri", qsweep),
                      ("1080p_422_q75", lambda: sub_row("422")),
                      ("1080p_444_q75", lambda: sub_row("444")),
@@ -517,7 +559,8 @@ def main(argv=None) -> int:
                      ("gray512_q75", gray_row),
                      ("4k_optimized", big_optimized_row),
                      ("decode_1080p", decode_row),
-                     ("e2e_upload", e2e_row)):
+                     ("e2e_upload", e2e_row),
+                     ("batch_sharded", sharded_row)):
         if name in rows:
             t0 = time.perf_counter()
             configs[name] = fn()
@@ -562,6 +605,7 @@ def main(argv=None) -> int:
     def compact(row):
         keep = {}
         for k in ("mpix_per_s", "bpp", "psnr_db", "e2e_upload_mpix_per_s",
+                  "e2e_mpix_per_s",
                   "numpy_mpix_per_s", "download_mpix_per_s",
                   "single_mpix_per_s", "single_dri_mpix_per_s"):
             if k in row:
@@ -585,7 +629,8 @@ def main(argv=None) -> int:
     line = json.dumps(line_obj, separators=(",", ":"))
     if len(line) > LINE_MAX:
         line_obj["configs"] = {
-            name: row.get("mpix_per_s", row.get("e2e_upload_mpix_per_s"))
+            name: row.get("mpix_per_s", row.get(
+                "e2e_upload_mpix_per_s", row.get("e2e_mpix_per_s")))
             for name, row in compact_configs.items() if name != "qsweep_dri"}
         line_obj["qsweep"] = {
             q: [r.get("mpix_per_s"), r.get("dev")]

@@ -36,7 +36,14 @@ reset just before it and read just after:
     the next chunk staged while one encodes; launch counters printed by the
     subprocess at exit), each file equal to encode_batch's, a resume that
     skips all 36 and a CLI decode equal to api.decode; and bench_torch.py
-    with the headline and decode rows at a batch of 16.
+    with the headline, decode and batch_sharded rows at a batch of 16;
+  * distribution: one 4320 x 7680 frame through encode_striped in 6 and 8
+    stripes, fused and optimize, its luma in 7 stripes and an islow +
+    optimize case at 4321 rows (files equal api.encode's at their DRI);
+    the 16 frames over the device list ["cuda", "cuda"] (encode fused and
+    optimize, the batch-split decode, the transcode); and
+    `dryrun_torch.py --ranks 2 --device cuda --full`, two processes over
+    gloo on the one card, whose files' SHA-256 equal this process's.
 
 Every output file is checked by the repo's own means: the C++ scan decoder,
 with the file's own tables, returns the kernel's coefficients exactly, and
@@ -394,7 +401,7 @@ def main() -> None:
 
     files, launches, plain, first_s, walls = drive(
         x16, ("k1a_fused", "seg_merge"), 3)
-    main_launches = dict(launches)
+    main_launches, walls_fused = dict(launches), walls
 
     _, _, zz16 = k1a_fused.fused_pixels_to_pack(x16, *ops, tabs, 8,
                                                 return_zz=True)
@@ -1614,8 +1621,9 @@ def main() -> None:
     if {k for k, v in launches.items() if v} != {"k1a_fused", "seg_merge"} \
             or plain:
         fail(f"stage_batch path: launches {launches}, plain calls {plain}")
-    if not (staged[1][0].is_cuda and staged[1][0].is_contiguous()
-            and isinstance(staged[1][1], torch.cuda.Event)):
+    if not (len(staged[1]) == 1 and staged[1][0][0].is_cuda
+            and staged[1][0][0].is_contiguous()
+            and isinstance(staged[1][0][1], torch.cuda.Event)):
         fail("stage_batch did not return a device tensor and a CUDA event")
     if staged_files != files:
         fail("files encoded through stage_batch differ from (a)'s")
@@ -1745,7 +1753,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         rb = subprocess.run(
             [sys.executable, os.path.join(root, "bench_torch.py"), "--rows",
-             "1080p_420_q75,decode_1080p", "--batch", "16", "--detail",
+             "1080p_420_q75,decode_1080p,batch_sharded", "--batch", "16",
+             "--detail",
              os.path.join(tmp, "detail.json")],
             cwd=root, capture_output=True, text=True, timeout=600)
     if rb.returncode != 0:
@@ -1756,11 +1765,209 @@ def main() -> None:
                "configs"} - set(bench)
     if missing or len(bench_line) >= 1900 or "vs_baseline" in bench \
             or not bench["backend"].startswith("cuda") \
-            or set(bench["configs"]) != {"1080p_420_q75", "decode_1080p"} \
+            or set(bench["configs"]) != {"1080p_420_q75", "decode_1080p",
+                                         "batch_sharded"} \
             or not bench["value"] > 0:
         fail(f"bench_torch.py line: {bench_line[:500]} (missing {missing})")
     emit({"phase": "bench_torch", "line_chars": len(bench_line),
           "value": bench["value"], "configs": bench["configs"],
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+    # --- phase 21: stripe mode on one 8K frame -------------------------------
+    # 4320 x 7680 RGB, Q75, 4:2:0: 270 MCU rows of 480 MCUs. 6 stripes is the
+    # even case (default DRI: 45 rows x 480 MCUs), 8 the ragged one (default
+    # DRI: one row, 480); each fused and with optimize. Then the luma in 7
+    # stripes (540 rows of 960: ragged, gray K1A) and islow + optimize at
+    # 4321 rows (not an MCU multiple: the last live stripe is re-encoded
+    # under its true-height layout). A ragged optimize case counts its tail
+    # stripe's histogram under the true-height layout: one more pass 1
+    # (K1 rows; islow: torch ops). Each file must equal api.encode's at the
+    # file's DRI byte for byte, and its scan decode the kernels'
+    # coefficients exactly.
+    t_phase = time.perf_counter()
+    BH, BW = 4320, 7680
+    big = fixtures.synth_frame(BH, BW)
+    big_gray = np.ascontiguousarray(big[..., 1])
+    big_islow = np.ascontiguousarray(np.concatenate([big, big[-1:]]))
+
+    def big_zz(img, mode):
+        """The unstriped encode's coefficients in raster order, from the
+        kernels the file's path runs (K1A / gray K1A; islow: the integer
+        pipeline)."""
+        pl = engine.get_plan(img.shape[0], BW, mode, Q, "cuda")
+        xb = torch.from_numpy(img).to(dev)[None]
+        if mode != "gray" and img.shape[0] != BH:
+            zz = pl.zz_islow(xb)[0][0, :pl.layout.n_scan]
+        else:
+            zz = k1a_fused.fused_pixels_to_pack(
+                xb, pl.layout, pl.kdct, pl.q, pl.standard_tables, 8,
+                return_zz=True)[2][0]
+        return raster(zz.cpu().numpy().astype(np.int32), pl.layout)
+
+    def big_decode_exact(data, want):
+        p = parser.parse_jpeg(data)
+        lay_ = make_layout(p.height, p.width, p.subsampling,
+                           p.restart_interval)
+        coef = native.decode_scan(
+            p.scan_data, lay_, [c.dc_tab for c in p.comps],
+            [c.ac_tab for c in p.comps],
+            [p.dc_tables.get(i) for i in range(2)],
+            [p.ac_tables.get(i) for i in range(2)])
+        return coef is not None and np.array_equal(coef, want)
+
+    striped_rows, striped_launches, striped_files = [], {}, {}
+    zz_cache = {}
+    for img, what, n_st, r, kw, expect in (
+            (big, "rgb 6 stripes", 6, 21600, {}, {"k1a_fused": 1,
+                                                  "seg_merge": 1}),
+            (big, "rgb 8 stripes ragged", 8, 480, {},
+             {"k1a_fused": 1, "seg_merge": 1}),
+            (big, "rgb 6 stripes optimize", 6, 21600, {"optimize": True},
+             {"k1_dct": 1, "block_pack": 1, "seg_merge": 1}),
+            (big, "rgb 8 stripes ragged optimize", 8, 480,
+             {"optimize": True}, {"k1_dct": 2, "block_pack": 1,
+                                  "seg_merge": 1}),
+            (big_gray, "gray 7 stripes ragged", 7, 960, {},
+             {"k1a_gray": 1, "seg_merge": 1}),
+            (big_islow, "islow optimize 4321 rows, 6 stripes ragged", 6,
+             480, {"optimize": True, "dct_method": "islow"},
+             {"block_pack": 2, "seg_merge": 2})):
+        reset_counters()
+        t0 = time.perf_counter()
+        data = mesh.encode_striped(img, n_st, quality=Q, device="cuda", **kw)
+        first_s = time.perf_counter() - t0
+        launches, plain = read_counters()
+        ran = {k: v for k, v in launches.items() if v}
+        if ran != expect or plain:
+            fail(f"encode_striped {what}: launches {launches} (expected "
+                 f"{expect}), plain calls {plain}")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = mesh.encode_striped(img, n_st, quality=Q, device="cuda",
+                                        **kw)
+            walls.append(time.perf_counter() - t0)
+            if again != data:
+                fail(f"encode_striped {what} is not deterministic")
+        whole = api.encode(img, quality=Q, restart_interval=r, device="cuda",
+                           **kw)
+        whole_walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            api.encode(img, quality=Q, restart_interval=r, device="cuda",
+                       **kw)
+            whole_walls.append(round(time.perf_counter() - t0, 4))
+        if data != whole:
+            fail(f"encode_striped {what} != api.encode(restart_interval={r})")
+        mode = "gray" if img.ndim == 2 else "420"
+        key = (img.shape[0], mode)          # the DRI moves no coefficient
+        if key not in zz_cache:
+            zz_cache[key] = big_zz(img, mode)
+        if not big_decode_exact(data, zz_cache[key]):
+            fail(f"encode_striped {what}: decoded != kernel coefficients")
+        px = img.shape[0] * BW
+        striped_launches[what] = ran
+        striped_files[what] = data
+        striped_rows.append({
+            "case": what, "restart_interval": r, "launches": ran,
+            "first_call_s": round(first_s, 4),
+            "wall_s": [round(t, 4) for t in walls],
+            "mpix_per_s_median": round(
+                px / 1e6 / sorted(walls)[1], 1),
+            "api_encode_wall_s": whole_walls,
+            "bpp": round(8 * len(data) / px, 4)})
+    del zz_cache
+    emit({"phase": "encode_striped", "shape": [BH, BW], "cases":
+          striped_rows, "bytes_equal_api_encode": True,
+          "decode_exact": True, "plain_calls": 0,
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+    # --- phase 22: device lists on the one card ----------------------------
+    # the 16 frames through encode_batch over ["cuda", "cuda"] (8 rows an
+    # entry: one plan, one stream, in turn), fused and optimize, and the
+    # batch-split decode; files and pixels equal the single-device ones
+    t_phase = time.perf_counter()
+    two = ["cuda", "cuda"]
+    dl_rows = {}
+    for what, kw, single, expect in (
+            ("fused", {}, files, {"k1a_fused": 2, "seg_merge": 2}),
+            ("optimize", {"optimize": True}, opt_files,
+             {"k1_dct": 2, "block_pack": 2, "seg_merge": 2})):
+        reset_counters()
+        got = mesh.encode_batch(x16, quality=Q, devices=two, device="cuda",
+                                **kw)
+        launches, plain = read_counters()
+        ran = {k: v for k, v in launches.items() if v}
+        if ran != expect or plain:
+            fail(f"device list {what}: launches {launches}, plain {plain}")
+        if got != single:
+            fail(f"device list {what} files != the single-device files")
+        pair_walls = {"single": [], "list": []}
+        for _ in range(3):
+            for name, devs_ in (("single", None), ("list", two)):
+                t0 = time.perf_counter()
+                mesh.encode_batch(x16, quality=Q, devices=devs_,
+                                  device="cuda", **kw)
+                pair_walls[name].append(round(time.perf_counter() - t0, 4))
+        dl_rows[what] = {"launches": ran, **pair_walls}
+    reset_counters()
+    pix = mesh.decode_batch(files, devices=two, device="cuda")
+    torch.cuda.synchronize()
+    launches, plain = read_counters()
+    dl_decode = {k: v for k, v in launches.items() if v}
+    if dl_decode != {"recon": 2} or plain:
+        fail(f"device list decode: launches {launches}, plain {plain}")
+    if not (len(pix) == 2 and all(p.is_cuda for p in pix) and torch.equal(
+            torch.cat(pix), api.decode_batch(files, to_device=True))):
+        fail("mesh.decode_batch over two entries != api.decode_batch")
+    again = mesh.encode_batch(pix, quality=Q, devices=two, device="cuda")
+    if again != mesh.encode_batch(torch.cat(pix), quality=Q, device="cuda"):
+        fail("device-list transcode != the single-device encode")
+    emit({"phase": "device_list", "entries": two, "frames": len(files),
+          **dl_rows, "decode_launches": dl_decode,
+          "files_equal_single_device": True, "pixels_equal_api": True,
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+    # --- phase 23: two processes on the one card -----------------------------
+    # dryrun_torch.py: two ranks over gloo, two entries each, its small cases
+    # checked on every rank, plus the 16 frames split by rank and the 8K
+    # frame in 6 stripes, whose SHA-256 must equal this process's files
+    import hashlib
+    t_phase = time.perf_counter()
+    rd = subprocess.run(
+        [sys.executable, os.path.join(root, "dryrun_torch.py"), "--ranks",
+         "2", "--device", "cuda", "--full", "--timeout", "400"],
+        cwd=root, capture_output=True, text=True, timeout=450)
+    if rd.returncode != 0:
+        fail(f"dryrun_torch.py exited {rd.returncode}: {rd.stderr[-3000:]}")
+    ranks = [json.loads(ln.split(" ", 1)[1]) for ln in rd.stdout.splitlines()
+             if ln.startswith("DRYRUN ")]
+    want_sha = {"batch_16x1080p": hashlib.sha256(b"".join(files)).hexdigest(),
+                "striped_8k_6": hashlib.sha256(
+                    striped_files["rgb 6 stripes"]).hexdigest()}
+    if len(ranks) != 2 or any(r_["sha256"] != want_sha for r_ in ranks):
+        fail(f"two-rank files differ: {ranks} against {want_sha}")
+    # the launches each rank's distributed calls made: its small cases run
+    # every encode and decode kernel but the repack and separable K1; its
+    # full cases 4 calls of 8 rows and 4 of 3 stripes, each over two
+    # entries, one K1A and one merge tail an entry
+    mp_small = {"k1a_fused", "k1a_gray", "seg_merge", "k1_dct", "k1_gray",
+                "block_pack", "recon", "recon_gray"}
+    for r_ in ranks:
+        small, full = dict(r_["launches"]), dict(r_["launches_full"])
+        if small.pop("plain_calls") or full.pop("plain_calls") \
+                or {k for k, v in small.items() if v} != mp_small \
+                or {k: v for k, v in full.items() if v} != \
+                {"k1a_fused": 16, "seg_merge": 16}:
+            fail(f"rank {r_['rank']}: launches {r_['launches']}, full "
+                 f"{r_['launches_full']}")
+    mp_launches = {k: sum(r_["launches"][k] + r_["launches_full"][k]
+                          for r_ in ranks) for k in ranks[0]["launches"]}
+    emit({"phase": "multiprocess", "ranks": ranks,
+          "sha256_equal_this_process": True,
+          "single_process_wall_s": {
+              "batch_16x1080p": [round(t, 4) for t in numpy_walls],
+              "striped_8k_6": striped_rows[0]["wall_s"]},
           "seconds": round(time.perf_counter() - t_phase, 1)})
 
     if any(m == "jax" or m.startswith(("jax.", "jpgenc_tpu."))
@@ -1780,7 +1987,19 @@ def main() -> None:
                                "gray_dri": gdri_launches,
                                "wide_optimize": wide_launches,
                                "separable_optimize": sep_launches,
-                               "islow": islow_launches}})
+                               "islow": islow_launches,
+                               "striped": striped_launches,
+                               "device_list": {
+                                   k: v["launches"]
+                                   for k, v in dl_rows.items()},
+                               "device_list_decode": dl_decode,
+                               "multiprocess": [
+                                   {k: v for k, v in r_["launches"].items()
+                                    if v} for r_ in ranks],
+                               "multiprocess_full": [
+                                   {k: v for k, v in
+                                    r_["launches_full"].items() if v}
+                                   for r_ in ranks]}})
 
     # bounds: each input read once and each output written once over the HBM
     # rate, against the operations the function needs over the CUDA-core
@@ -1857,7 +2076,7 @@ def main() -> None:
     ke_zz = "zz |diff| <= 1 on <= 1e-4 of coefficients"
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start,
                                              1)})
-    emit({"kernels": [
+    kernels = [
         {"name": "k1a_fused", "route": "cuda",
          "source": "jpgenc_tpu_torch/csrc/k1a_fused.cu",
          "replaces": "jpgenc_tpu/ops/pallas/k1a_fused.py:56",
@@ -1981,7 +2200,10 @@ def main() -> None:
          "own_flop_ms_bench": round(2.0 * bench_terms["gray"]["fmas"]
                                     / F32_FLOP_PER_S * 1e3, 4),
          "library_ms": None},
-    ]})
+    ]
+    for k_ in kernels:      # what the two ranks' distributed calls launched
+        k_["launches_multiprocess"] = mp_launches[k_["name"]]
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,16 @@ ref, utils). The slices that are in: the batched baseline encode of RGB
 (standard tables or two-pass optimized Huffman, any restart interval, frames
 of any width, dct_method "float" or the libjpeg-exact "islow"); and the
 decoder, from any baseline JFIF file (restart intervals included) to pixels
-on the device:
+on the device; and distribution (parallel.mesh: stripe mode, device lists,
+the batch-split decode; parallel.multihost: processes over gloo):
 
     jpgenc_tpu_torch.parallel.mesh.encode_batch(imgs, quality=75, device="cuda")
     jpgenc_tpu_torch.api.encode(img, quality=75, optimize=True, device="cuda")
     jpgenc_tpu_torch.api.encode(img, restart_interval=120, dct_method="islow")
     jpgenc_tpu_torch.api.decode_batch(files, to_device=True, device="cuda")
     jpgenc_tpu_torch.api.decode(data, device="cuda")
+    jpgenc_tpu_torch.parallel.mesh.encode_striped(img, 8, device="cuda")
+    jpgenc_tpu_torch.parallel.mesh.encode_batch(imgs, devices=["cuda", "cuda"])
 
 The encoders return the same JFIF bytes as `jpgenc_tpu.api.encode`; the
 decoders return `jpgenc_tpu.api.decode`'s pixels up to float rounding on a

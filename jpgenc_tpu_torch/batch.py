@@ -1,5 +1,5 @@
 """Checkpointed batch encode driver (copy of jpgenc_tpu/batch.py, with
-`device=` in place of `mesh=`).
+`device=` and `devices=` in place of `mesh=`).
 
 Encodes a list of images to files in fixed-size chunks through
 `parallel.mesh.encode_batch`, appending one manifest line per finished
@@ -64,9 +64,13 @@ def run_batch(images: Sequence[np.ndarray | str] | np.ndarray,
               chunk_size: int = 16,
               device="cuda",
               dct_method: str = "float",
-              encode_chunk: Callable | None = None) -> BatchResult:
-    """Encode images[i] -> output_paths[i] on `device` with resume via the
-    manifest.
+              encode_chunk: Callable | None = None,
+              devices=None) -> BatchResult:
+    """Encode images[i] -> output_paths[i] on `device` (or the entries of
+    `devices`, as parallel.mesh.resolve_devices takes them: a list or a
+    config.MeshConfig) with resume via the manifest. Under several
+    processes (parallel.multihost) every process runs the same call: each
+    chunk's rows split over the processes, every process writes every file.
 
     `images` entries may be uint8 arrays or file paths (loaded lazily, one
     chunk at a time, via jpgenc_tpu_torch.io — a large set is never held in
@@ -133,7 +137,7 @@ def run_batch(images: Sequence[np.ndarray | str] | np.ndarray,
         return chunk, mesh.stage_batch(chunk, quality=quality,
                                        subsampling=subsampling,
                                        restart_interval=restart_interval,
-                                       device=dev)
+                                       device=dev, devices=devices)
 
     px_done = 0
     t0 = time.perf_counter()
@@ -150,7 +154,8 @@ def run_batch(images: Sequence[np.ndarray | str] | np.ndarray,
             outs = encode_chunk(chunk, quality=quality,
                                 subsampling=subsampling,
                                 restart_interval=restart_interval,
-                                optimize=optimize, device=dev, **kwargs)
+                                optimize=optimize, device=dev,
+                                devices=devices, **kwargs)
             for i, data in zip(idxs, outs):
                 with open(output_paths[i], "wb") as f:
                     f.write(data)

@@ -6,7 +6,7 @@ runs their plain PyTorch versions).
 Usage:
   python -m jpgenc_tpu_torch encode IN.{png,ppm,pgm,jpg,...} OUT.jpg
       [--quality Q] [--subsampling 444|422|420] [--restart N] [--optimize]
-      [--dct-method float|islow] [--device cuda|cpu]
+      [--dct-method float|islow] [--stripes N] [--device cuda|cpu]
   python -m jpgenc_tpu_torch batch IN_DIR OUT_DIR [--chunk N] ...
   python -m jpgenc_tpu_torch decode IN.jpg OUT.{png,ppm,pgm}
   python -m jpgenc_tpu_torch bench [--size HxW] [--quality Q] [--frames N]
@@ -28,18 +28,22 @@ import numpy as np
 
 
 def cmd_encode(args: argparse.Namespace) -> int:
-    if args.stripes > 1:
-        print("--stripes > 1: stripe mode comes with encode_striped "
-              "(ROADMAP.md Queue 1 item 4), which this package does not "
-              "have yet; nothing was encoded", file=sys.stderr)
-        return 2
     from jpgenc_tpu_torch import io
     from jpgenc_tpu_torch.api import encode
     img = io.load(args.input)
     t0 = time.perf_counter()
-    data = encode(img, quality=args.quality, subsampling=args.subsampling,
-                  restart_interval=args.restart, optimize=args.optimize,
-                  dct_method=args.dct_method, device=args.device)
+    if args.stripes > 1:
+        from jpgenc_tpu_torch.parallel.mesh import encode_striped
+        data = encode_striped(img, n_stripes=args.stripes,
+                              quality=args.quality,
+                              subsampling=args.subsampling,
+                              restart_interval=args.restart,
+                              optimize=args.optimize,
+                              dct_method=args.dct_method, device=args.device)
+    else:
+        data = encode(img, quality=args.quality, subsampling=args.subsampling,
+                      restart_interval=args.restart, optimize=args.optimize,
+                      dct_method=args.dct_method, device=args.device)
     dt = time.perf_counter() - t0
     with open(args.output, "wb") as f:
         f.write(data)
@@ -160,8 +164,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="islow = libjpeg-exact integer pipeline "
                         "(byte-identical files to libjpeg-turbo)")
     e.add_argument("--stripes", type=int, default=1,
-                   help="MCU-row stripes (above 1: not in this package "
-                        "yet, exits with status 2)")
+                   help="MCU-row stripes (above 1: parallel.mesh."
+                        "encode_striped; restart markers at the stripe "
+                        "boundaries)")
     _device_arg(e)
     e.set_defaults(fn=cmd_encode)
 

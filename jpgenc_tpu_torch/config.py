@@ -1,6 +1,7 @@
-"""Encode configuration (copy of jpgenc_tpu/config.py's EncodeConfig).
+"""Encode and device configuration (copies of jpgenc_tpu/config.py's
+EncodeConfig and MeshConfig).
 
-One frozen, hashable dataclass; no global flags.
+Frozen, hashable dataclasses; no global flags.
 """
 from __future__ import annotations
 
@@ -34,3 +35,24 @@ class EncodeConfig:
             raise ValueError("restart_interval must be in [0, 65535]")
         if self.dct_method not in ("float", "islow"):
             raise ValueError("dct_method must be 'float' or 'islow'")
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Declarative device choice (copy of jpgenc_tpu/config.py's MeshConfig).
+
+    batch/stripe: devices along each axis; 0 = use all remaining devices.
+    A (batch=0, stripe=1) default gives the 1-D data-parallel list; striped
+    single-image encodes set stripe>1. Resolve to a device list with
+    parallel.mesh.resolve_devices(cfg, device) — hashable, like the
+    original."""
+    batch: int = 0
+    stripe: int = 1
+    batch_axis: str = "batch"
+    stripe_axis: str = "stripe"
+
+    def __post_init__(self):
+        if self.batch < 0 or self.stripe < 1:
+            raise ValueError("batch must be >= 0 and stripe >= 1")
+        if self.batch_axis == self.stripe_axis:
+            raise ValueError("mesh axis names must differ")

@@ -23,16 +23,16 @@ kernel, so the form never changes a pixel:
 Sizes are uploaded as they are. The reference's power-of-two capacity
 buckets, its one-buffer single-image upload and its cache of jitted
 reconstructions bound retraces and a per-transfer latency that eager
-PyTorch on a local card does not have, and are not carried over (ROADMAP.md
-Queue 1 item 9); `_pad_packed` stays as the pinned description of the pad
-semantics the densify honours: positions and exception indices past the end
-fall into a sink element.
+PyTorch on a local card does not have, and are not carried over;
+`_pad_packed` stays as the pinned description of the pad semantics the
+densify honours: positions and exception indices past the end fall into a
+sink element.
 
 Gray and 4:4:4 / 4:2:2 / 4:2:0 take the CUDA kernel at any size
 (`recon.recon_applicable`); the rarer samplings (4:1:1, 4:4:0, 4:1:0) take
 the same reconstruction as torch ops on the device (`pixel_fn`), counted in
-`unfused_calls`. Sharding a batch over several devices
-(jpgenc_tpu/parallel/mesh.py `decode_batch`) is ROADMAP.md Queue 1 item 8.
+`unfused_calls`. `parallel.mesh.decode_batch` splits a batch over a list
+of devices and over processes, one `_recon_jobs` job an entry.
 """
 from __future__ import annotations
 
@@ -640,20 +640,25 @@ def decode(data: bytes, to_device: bool = False, device="cuda"):
     return out if to_device else out.cpu().numpy()
 
 
-def _recon_jobs(datas: list[bytes], chunk: int | None):
-    """Host half of decode_batch: parse + entropy decode + upload-form
-    selection. Returns (layout, [thunk per chunk -> _Job]) — or None when
-    the batch mixes geometries and must go per-image. Each thunk builds its
-    chunk's host arrays when called, so a caller can upload and launch one
-    chunk before the next one's arrays are made."""
-    parsed = [parse_jpeg(d) for d in datas]
-
+def same_geometry(parsed: list[ParsedJpeg]) -> bool:
+    """True when every parsed file has the first one's geometry. It
+    INCLUDES the restart interval: the segment layout drives the scan
+    decode, so a mixed-DRI batch must go per-image."""
     def _geom(p):
-        # geometry INCLUDES the restart interval: the segment layout drives
-        # the scan decode, so a mixed-DRI batch must go per-image
         return (p.height, p.width, p.subsampling, p.restart_interval)
+    return all(_geom(p) == _geom(parsed[0]) for p in parsed)
 
-    if any(_geom(p) != _geom(parsed[0]) for p in parsed):
+
+def _recon_jobs(datas: list, chunk: int | None):
+    """Host half of decode_batch: parse + entropy decode + upload-form
+    selection. datas: file bytes, or ParsedJpeg objects already parsed.
+    Returns (layout, [thunk per chunk -> _Job]) — or None when the batch
+    mixes geometries and must go per-image. Each thunk builds its chunk's
+    host arrays when called, so a caller can upload and launch one chunk
+    before the next one's arrays are made."""
+    parsed = [d if isinstance(d, ParsedJpeg) else parse_jpeg(d)
+              for d in datas]
+    if not same_geometry(parsed):
         return None
     layout = layout_from_parsed(parsed[0])
 

@@ -403,16 +403,25 @@ class EncodePlan(nn.Module):
             zz, dcdiff, self.ac_tab, self.dc_tab, self.valid, tables, w_blk)
         return self.merge(buf, bits, cap_u, w_blk)
 
-    def fetch(self, outs, cap_u: int):
-        """One host copy of (stream prefix, nbits, ovf) for every image,
-        refetching the prefix only when the adaptive guess fell short; both
-        copies go through to_host_async. Returns [(u_words, nbits, ok)] per
-        image; ok is False when the image overflowed its block tier or the
-        stream capacity."""
+    def start_fetch(self, outs) -> tuple[HostCopy, int]:
+        """Start the one host copy of (stream prefix, nbits, ovf) of a
+        batch's outputs at the adaptive guess and return (handle, k) for
+        fetch(started=...): a caller with several batches in flight starts
+        every copy before it waits on any."""
         wstream, nbits, ovf = outs
         with self._guess_lock:
             guess = self.prefix_guess
-        handle, k = combined_fetch(wstream, nbits, ovf, guess)
+        return combined_fetch(wstream, nbits, ovf, guess)
+
+    def fetch(self, outs, cap_u: int, started=None):
+        """One host copy of (stream prefix, nbits, ovf) for every image
+        (started: start_fetch's result, else it starts here), refetching
+        the prefix only when the adaptive guess fell short; both copies go
+        through to_host_async. Returns [(u_words, nbits, ok)] per image; ok
+        is False when the image overflowed its block tier or the stream
+        capacity."""
+        wstream, nbits, ovf = outs
+        handle, k = started or self.start_fetch(outs)
         up, nb, ov = split_fetch(handle.wait(), k, nbits.shape[-1])
         need = pack.seg_nwords_aligned(nb.astype(np.int64),
                                        self.walign).sum(axis=-1)
@@ -424,24 +433,39 @@ class EncodePlan(nn.Module):
             self.prefix_guess = max(t, 1024)
         return [(up[i], nb[i], bool(ok[i])) for i in range(len(nb))]
 
-    def finalize(self, outs, cap_u: int) -> list[bytes | None]:
+    def finalize(self, outs, cap_u: int, rst=None, started=None
+                 ) -> list[bytes | None]:
         """fetch + host finalize: the entropy-coded scan (stuffed, no
-        markers) per image; None for an image that overflowed this tier."""
-        return [finalize_host_w(up, nb, 0, len(nb) - 1, self.walign)
-                if ok else None for up, nb, ok in self.fetch(outs, cap_u)]
+        markers) per image; None for an image that overflowed this tier.
 
-    def encode_scans(self, imgs: torch.Tensor, cap_u: int, w_blk: int
-                     ) -> list[bytes | None]:
+        rst gives, per image, (first_rst, n_rst, n_seg_keep) for stripe
+        sub-images of a larger scan: keep the first n_seg_keep segments
+        (a ragged tail drops its padding-row segments; the stream is
+        segment-ordered, so a prefix is exact), and write RSTn after the
+        first n_rst of them, numbered from first_rst. The default is a
+        whole image: (0, n_segments - 1, n_segments)."""
+        out = []
+        for i, (up, nb, ok) in enumerate(self.fetch(outs, cap_u, started)):
+            first, n_rst, keep = (0, len(nb) - 1, len(nb)) if rst is None \
+                else rst[i]
+            out.append(finalize_host_w(up, nb[:keep], first, n_rst,
+                                       self.walign) if ok else None)
+        return out
+
+    def encode_scans(self, imgs: torch.Tensor, cap_u: int, w_blk: int,
+                     rst=None) -> list[bytes | None]:
         """Entropy-coded scans (stuffed, no markers) for a batch on the
-        fused path; None for an image that overflowed this tier."""
-        return self.finalize(self(imgs, cap_u, w_blk), cap_u)
+        fused path; None for an image that overflowed this tier. rst: as
+        finalize."""
+        return self.finalize(self(imgs, cap_u, w_blk), cap_u, rst)
 
     def entropy_scans_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor,
-                         tables, cap_u: int, w_blk: int
+                         tables, cap_u: int, w_blk: int, rst=None
                          ) -> list[bytes | None]:
         """The same from pass 1's cached blocks and given tables (pass 2)."""
         return self.finalize(
-            self.entropy_from_zz(zz, dcdiff, tables, cap_u, w_blk), cap_u)
+            self.entropy_from_zz(zz, dcdiff, tables, cap_u, w_blk), cap_u,
+            rst)
 
 
 @functools.lru_cache(maxsize=16)

@@ -25,7 +25,7 @@ from jpgenc_tpu_torch.utils import fixtures, profiling
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ROWS = ("1080p_420_q75", "qsweep_dri", "1080p_422_q75", "1080p_444_q75",
         "1080p_islow_q75", "1080p_420_q75_optimized", "gray512_q75",
-        "4k_optimized", "decode_1080p", "e2e_upload")
+        "4k_optimized", "decode_1080p", "e2e_upload", "batch_sharded")
 
 
 def _env():
@@ -67,11 +67,12 @@ def test_bench_cpu_walks_every_row(tmp_path):
     assert len(rows) == len(ROWS) - 1 + 6
     for row in rows:
         assert "error" not in row
-        assert row.get("mpix_per_s", row.get("e2e_upload_mpix_per_s")) > 0
+        assert row.get("mpix_per_s", row.get(
+            "e2e_upload_mpix_per_s", row.get("e2e_mpix_per_s"))) > 0
         for k, v in row.items():
             assert v is not None, k
     for name in ROWS:
-        if name in ("e2e_upload", "qsweep_dri"):
+        if name in ("e2e_upload", "qsweep_dri", "batch_sharded"):
             continue
         row = full["configs"][name]
         assert {"device_only_mpix_per_s", "d2h_bytes", "bpp",
@@ -82,6 +83,25 @@ def test_bench_cpu_walks_every_row(tmp_path):
     assert {"pass1_ms", "tables_ms", "pass2_ms"} <= set(split)
     e2e = full["configs"]["e2e_upload"]
     assert e2e["e2e_upload_mpix_per_s"] > 0 and e2e["numpy_mpix_per_s"] > 0
+
+
+def test_bench_batch_sharded_row(tmp_path):
+    """bench.py's c11 row alone: 3 double-buffered chunks through
+    stage_batch / encode_batch(staged=) over MeshConfig()'s entries."""
+    detail = tmp_path / "detail.json"
+    r = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"),
+                        "--device", "cpu", "--size", "64x96", "--batch", "2",
+                        "--rows", "batch_sharded", "--detail", str(detail)],
+                       cwd=tmp_path, env=_env(), capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert tuple(line["configs"]) == ("1080p_420_q75", "batch_sharded")
+    assert line["configs"]["batch_sharded"]["e2e_mpix_per_s"] > 0
+    row = json.loads(detail.read_text())["configs"]["batch_sharded"]
+    assert row["images"] == 6 and row["devices"] == ["cpu"]
+    assert row["passes"] == 5 and len(row["wall_ms_quartiles"]) == 3
+    assert row["shape"] == [64, 96]
 
 
 def test_bench_refuses_cuda_without_cuda(tmp_path):

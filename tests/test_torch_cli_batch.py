@@ -128,14 +128,21 @@ def test_module_encode_decode_roundtrip(tmp_path):
 
 
 def test_stripes_above_one_exit_2(tmp_path, capsys):
-    io.save(str(tmp_path / "in.pgm"), synth_frame(16, 16, seed=3)[..., 0])
+    """--stripes above 1 once exited 2 (no stripe mode yet); it now writes
+    the file parallel.mesh.encode_striped gives, and --stripes 1 the plain
+    encode's."""
+    img = synth_frame(16, 16, seed=3)[..., 0].copy()
+    io.save(str(tmp_path / "in.pgm"), img)
     rc = cli_main(["encode", str(tmp_path / "in.pgm"),
                    str(tmp_path / "o.jpg"), "--stripes", "2", *CPU])
-    assert rc == 2
-    assert "encode_striped" in capsys.readouterr().err
-    assert not (tmp_path / "o.jpg").exists()
+    assert rc == 0
+    striped = mesh.encode_striped(img, 2, device="cpu")
+    assert (tmp_path / "o.jpg").read_bytes() == striped
+    assert striped == api.encode(img, restart_interval=2, device="cpu")
     assert cli_main(["encode", str(tmp_path / "in.pgm"),
                      str(tmp_path / "o.jpg"), "--stripes", "1", *CPU]) == 0
+    assert (tmp_path / "o.jpg").read_bytes() == api.encode(img,
+                                                           device="cpu")
 
 
 def test_cuda_device_without_cuda_raises(tmp_path):
@@ -155,7 +162,8 @@ def test_cuda_device_without_cuda_raises(tmp_path):
 @pytest.mark.parametrize("args,gray,optimize", [
     (["--quality", "75", "--restart", "2"], False, False),
     (["--quality", "90", "--subsampling", "444"], False, False),
-    (["--optimize"], True, True)])
+    (["--optimize"], True, True),
+    (["--quality", "80", "--stripes", "3"], False, False)])
 def test_cli_encode_files_match_reference_cli(tmp_path, args, gray,
                                               optimize):
     img = synth_frame(48, 80, seed=21)
@@ -392,7 +400,8 @@ def test_encode_batch_staged_equals_unstaged(gray):
     if gray:
         imgs = imgs[..., 0].copy()
     staged = mesh.stage_batch(imgs, quality=60, device="cpu")
-    assert staged[0] is not None and staged[1][1] is None
+    assert staged[0] is not None and len(staged[1]) == 1 \
+        and staged[1][0][1] is None
     assert mesh.encode_batch(None, quality=60, device="cpu",
                              staged=staged) == \
         mesh.encode_batch(imgs, quality=60, device="cpu")

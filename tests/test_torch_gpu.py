@@ -1070,3 +1070,44 @@ def test_islow_on_cuda_equals_cpu_and_reference(cuda, mode, dri, optimize):
         dc_t, ac_t = ref_encoder.standard_tables()
     assert data == (jfif_headers(lay, 75, dc_t, ac_t)
                     + ref_encoder.entropy_scan(lay, blocks, dc_t, ac_t) + EOI)
+
+
+# --- distribution on the card: stripes and device lists ------------------------
+
+STRIPE_CASES = [((128, 128), 4, {"restart_interval": 16}),       # gray, even
+                ((120, 136, 3), 3, {}),                          # ragged
+                ((120, 136, 3), 4, {"optimize": True}),
+                ((56, 64), 5, {"restart_interval": 8}),          # pure pad
+                ((61, 48, 3), 3, {"optimize": True, "dct_method": "islow"})]
+
+
+@pytest.mark.parametrize("shape,n,kw", STRIPE_CASES)
+def test_encode_striped_on_cuda_equals_unstriped(cuda, shape, n, kw):
+    img = fixtures.synth_frame(shape[0], shape[1], seed=61)
+    if len(shape) == 2:
+        img = img[..., 0].copy()
+    data = mesh.encode_striped(img, n, devices=["cuda", "cuda"],
+                               device="cuda", **kw)
+    r = parser.parse_jpeg(data).restart_interval
+    assert kw.get("restart_interval", r) == r
+    assert data == api.encode(img, device="cuda",
+                              **{**kw, "restart_interval": r})
+    assert data == mesh.encode_striped(img, n, device="cuda", **kw)
+
+
+@pytest.mark.parametrize("kw", [{}, {"optimize": True},
+                                {"dct_method": "islow"}])
+def test_device_lists_on_cuda(cuda, kw):
+    imgs = np.stack([fixtures.synth_frame(48, 80, seed=70 + i)
+                     for i in range(5)])
+    single = mesh.encode_batch(imgs, device="cuda", **kw)
+    for devs in (["cuda", "cuda"], ["cuda"] * 3):
+        assert mesh.encode_batch(imgs, devices=devs, device="cuda",
+                                 **kw) == single
+    pix = mesh.decode_batch(single, devices=["cuda", "cuda"], device="cuda")
+    assert all(p.is_cuda for p in pix)
+    assert torch.equal(torch.cat(pix),
+                       api.decode_batch(single, to_device=True,
+                                        device="cuda"))
+    assert mesh.encode_batch(pix, devices=["cuda", "cuda"], device="cuda") \
+        == mesh.encode_batch(torch.cat(pix), device="cuda")

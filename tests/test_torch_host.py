@@ -380,6 +380,22 @@ def test_config_equals_reference():
             ours(**kw)
 
 
+def test_mesh_config_equals_reference():
+    from jpgenc_tpu.config import MeshConfig as ref
+    from jpgenc_tpu_torch.config import MeshConfig as ours
+    assert [(f.name, f.default) for f in dataclasses.fields(ours)] == \
+        [(f.name, f.default) for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(ours(batch=2, stripe=3)) == \
+        dataclasses.asdict(ref(batch=2, stripe=3))
+    for kw in ({"batch": -1}, {"stripe": 0},
+               {"batch_axis": "x", "stripe_axis": "x"}):
+        with pytest.raises(ValueError):
+            ref(**kw)
+        with pytest.raises(ValueError):
+            ours(**kw)
+    assert hash(ours()) == hash(ours()) and ours.__dataclass_params__.frozen
+
+
 @pytest.mark.parametrize("h,w,sub,dri", [(48, 62, "444", 0), (120, 120, "420", 3),
                                          (100, 64, "gray", 3)])
 def test_container_modules_equal_reference(h, w, sub, dri):

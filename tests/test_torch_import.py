@@ -1,10 +1,12 @@
 """The port imports neither JAX nor the JAX package: importing every module
 of `jpgenc_tpu_torch` and running CPU encodes (colour, gray, optimize) and
 decodes of their files (one file, a batch, the float64 reference), the
-batch driver over PPM files and `python -m jpgenc_tpu_torch --help` leave
-`jax` and `jpgenc_tpu` out of sys.modules (checked in fresh interpreters,
-since this test process imports both), and no source file of the port, of
-bench_torch.py or of chip_smoke.py names either in an import."""
+batch driver over PPM files, stripe mode, the batch-split decode and
+`python -m jpgenc_tpu_torch --help`, and importing dryrun_torch.py and the
+two-process test workers, leave `jax` and `jpgenc_tpu` out of sys.modules
+(checked in fresh interpreters, since this test process imports both), and
+no source file of the port, of bench_torch.py, chip_smoke.py,
+dryrun_torch.py or the workers names either in an import."""
 import os
 import pathlib
 import re
@@ -16,6 +18,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 _PROBE = r"""
 import importlib, pkgutil, sys
 import numpy as np
+import torch
 import jpgenc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(jpgenc_tpu_torch.__path__,
                                                "jpgenc_tpu_torch.")]
@@ -49,6 +52,20 @@ with tempfile.TemporaryDirectory() as d:
     res = run_batch(paths, outs, os.path.join(d, "m.jsonl"), chunk_size=2,
                     device="cpu")
     assert res.done == 3
+import importlib.util, pathlib
+import dryrun_torch
+for name in ("_torch_mp_worker", "_torch_mp_fault_worker"):
+    spec = importlib.util.spec_from_file_location(
+        name, pathlib.Path("tests") / (name + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from jpgenc_tpu_torch.parallel import multihost
+multihost.initialize()
+assert multihost.gather_bytes(b"x") == [b"x"]
+assert mesh.encode_striped(rgb, 2, device="cpu") == \
+    api.encode(rgb, restart_interval=3, device="cpu")
+pix = mesh.decode_batch([data] * 3, devices=["cpu"] * 2, device="cpu")
+assert mesh.encode_batch(pix, devices=["cpu"] * 2, device="cpu") == \
+    mesh.encode_batch(torch.cat(pix).numpy(), device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jpgenc_tpu"))
 print("MODULES", len(names), "JAX", bad)
@@ -101,7 +118,9 @@ def test_module_help_runs_without_jax():
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "jpgenc_tpu_torch").rglob("*.py"))
-    files += [ROOT / "bench_torch.py", ROOT / "chip_smoke.py"]
+    files += [ROOT / "bench_torch.py", ROOT / "chip_smoke.py",
+              ROOT / "dryrun_torch.py"]
+    files += sorted((ROOT / "tests").glob("_torch_mp_*.py"))
     offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"jpgenc_tpu_torch/decoder.py", "jpgenc_tpu_torch/ref/decoder.py",
@@ -111,7 +130,10 @@ def test_no_source_imports_jax_or_the_jax_package():
             "jpgenc_tpu_torch/batch.py", "jpgenc_tpu_torch/cli.py",
             "jpgenc_tpu_torch/__main__.py",
             "jpgenc_tpu_torch/utils/profiling.py", "bench_torch.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "dryrun_torch.py",
+            "jpgenc_tpu_torch/parallel/multihost.py",
+            "tests/_torch_mp_worker.py",
+            "tests/_torch_mp_fault_worker.py"} <= names
     assert len(files) >= 31 and offenders == []
 
 
