@@ -46,6 +46,7 @@ from jpgenc_tpu_torch.ops.cuda import block_pack, k1_dct, k1a_fused, seg_merge
 from jpgenc_tpu_torch.ops.cuda.block_pack import packed_tables
 from jpgenc_tpu_torch.ops.transform import _KDCT_ZZ
 from jpgenc_tpu_torch.ref import encoder as ref_encoder
+from jpgenc_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -195,8 +196,9 @@ def tiers_for(layout, quality: int) -> list[tuple[int, int]]:
 
 
 #: bytes that to_host_async has copied to the host since the last reset (the
-#: bench's d2h_bytes; a counter like the wrappers' launch counts)
+#: bench's d2h_bytes), added to under _fetched_lock
 fetched_bytes = 0
+_fetched_lock = threading.Lock()
 
 
 class HostCopy(NamedTuple):
@@ -225,7 +227,8 @@ def to_host_async(t: torch.Tensor) -> HostCopy:
     the arrays of an earlier fetch, which are views, are never overwritten.
     A CPU tensor is already on the host: it is its own copy."""
     global fetched_bytes
-    fetched_bytes += t.numel() * t.element_size()
+    with _fetched_lock:
+        fetched_bytes += t.numel() * t.element_size()
     if t.device.type != "cuda":
         return HostCopy(t)
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -419,16 +422,20 @@ class EncodePlan(nn.Module):
         the prefix only when the adaptive guess fell short; both copies go
         through to_host_async. Returns [(u_words, nbits, ok)] per image; ok
         is False when the image overflowed its block tier or the stream
-        capacity."""
+        capacity. The waits are the spans `jpgenc.fetch_wait` and
+        `jpgenc.refetch_wait`."""
         wstream, nbits, ovf = outs
         handle, k = started or self.start_fetch(outs)
-        up, nb, ov = split_fetch(handle.wait(), k, nbits.shape[-1])
+        with span("jpgenc.fetch_wait"):
+            arr = handle.wait()
+        up, nb, ov = split_fetch(arr, k, nbits.shape[-1])
         need = pack.seg_nwords_aligned(nb.astype(np.int64),
                                        self.walign).sum(axis=-1)
         ok = ~ov & (need <= cap_u // 4)
         t = int(need[ok].max()) if ok.any() else 0
         if t > k:
-            up = to_host_async(wstream[:, :t]).wait()
+            with span("jpgenc.refetch_wait"):
+                up = to_host_async(wstream[:, :t]).wait()
         with self._guess_lock:
             self.prefix_guess = max(t, 1024)
         return [(up[i], nb[i], bool(ok[i])) for i in range(len(nb))]
@@ -443,13 +450,16 @@ class EncodePlan(nn.Module):
         (a ragged tail drops its padding-row segments; the stream is
         segment-ordered, so a prefix is exact), and write RSTn after the
         first n_rst of them, numbered from first_rst. The default is a
-        whole image: (0, n_segments - 1, n_segments)."""
+        whole image: (0, n_segments - 1, n_segments). The host finalize,
+        the fetch excluded, is the span `jpgenc.finalize_host`."""
+        fetched = self.fetch(outs, cap_u, started)
         out = []
-        for i, (up, nb, ok) in enumerate(self.fetch(outs, cap_u, started)):
-            first, n_rst, keep = (0, len(nb) - 1, len(nb)) if rst is None \
-                else rst[i]
-            out.append(finalize_host_w(up, nb[:keep], first, n_rst,
-                                       self.walign) if ok else None)
+        with span("jpgenc.finalize_host"):
+            for i, (up, nb, ok) in enumerate(fetched):
+                first, n_rst, keep = (0, len(nb) - 1, len(nb)) \
+                    if rst is None else rst[i]
+                out.append(finalize_host_w(up, nb[:keep], first, n_rst,
+                                           self.walign) if ok else None)
         return out
 
     def encode_scans(self, imgs: torch.Tensor, cap_u: int, w_blk: int,

@@ -41,6 +41,7 @@ from jpgenc_tpu_torch.ops.cuda.block_pack import packed_tables
 from jpgenc_tpu_torch.ops.pack import w_blk_for_quality
 from jpgenc_tpu_torch.parallel import multihost
 from jpgenc_tpu_torch.ref.encoder import standard_tables
+from jpgenc_tpu_torch.utils.profiling import span
 
 _OVERFLOW = ("overflow at the worst capacity tier, which covers "
              "MAX_BLOCK_BITS")
@@ -129,7 +130,8 @@ def stage_batch(imgs, quality: int = 75, subsampling: str = "420",
     staging batch k+1 while batch k encodes overlaps upload with compute
     (the double-buffered input of batch.run_batch). On the CPU the tensor
     is the rows themselves and the event is None. The plans for the batch's
-    geometry are built here too, as the reference's _batch_setup does."""
+    geometry are built here too, as the reference's _batch_setup does. The
+    pinned copy is the span `jpgenc.stage.pin`."""
     cfg = config.EncodeConfig(quality=quality, subsampling=subsampling,
                               restart_interval=restart_interval)
     devs = resolve_devices(devices, device)
@@ -137,8 +139,10 @@ def stage_batch(imgs, quality: int = 75, subsampling: str = "420",
     host = as_device_batch(imgs, torch.device("cpu"))
     mode = "gray" if host.dim() == 3 else cfg.subsampling
     own = multihost.owned_indices(len(imgs))
-    pinned = host[own.start:own.stop].pin_memory() \
-        if any(d.type == "cuda" for d in devs) and len(own) else None
+    pinned = None
+    if any(d.type == "cuda" for d in devs) and len(own):
+        with span("jpgenc.stage.pin"):
+            pinned = host[own.start:own.stop].pin_memory()
     handles = []
     for dev, rows in _owned_split(len(imgs), devs):
         get_plan(host.shape[1], host.shape[2], mode, cfg.quality, str(dev),
@@ -238,15 +242,18 @@ class _Entry:
     def retry(self, j: int, cap_u: int, rst=None) -> bytes:
         """Row j alone at the worst tier (w_blk 56, which cannot overflow):
         from the cached coefficients when there are any (with row j's own
-        tables where they are per image), else from its pixels."""
-        if self.zz is not None:
-            tabs = tuple(t[j:j + 1] for t in self.tabs) \
-                if self.tabs[0].dim() == 3 else self.tabs
-            scan = self.plan.entropy_scans_zz(
-                self.zz[j:j + 1], self.dcdiff[j:j + 1], tabs, cap_u, 56,
-                rst)[0]
-        else:
-            scan = self.plan.encode_scans(self.x[j:j + 1], cap_u, 56, rst)[0]
+        tables where they are per image), else from its pixels. The whole
+        re-encode is the span `jpgenc.retry`."""
+        with span("jpgenc.retry"):
+            if self.zz is not None:
+                tabs = tuple(t[j:j + 1] for t in self.tabs) \
+                    if self.tabs[0].dim() == 3 else self.tabs
+                scan = self.plan.entropy_scans_zz(
+                    self.zz[j:j + 1], self.dcdiff[j:j + 1], tabs, cap_u, 56,
+                    rst)[0]
+            else:
+                scan = self.plan.encode_scans(self.x[j:j + 1], cap_u, 56,
+                                              rst)[0]
         if scan is None:
             raise RuntimeError(_OVERFLOW)
         return scan

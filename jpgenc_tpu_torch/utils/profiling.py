@@ -1,6 +1,10 @@
 """Tracing and profiling utilities (counterpart of
 jpgenc_tpu/utils/profiling.py).
 
+- `span(name)` marks a stretch of the port's host work (names start with
+  `jpgenc.`) as a range of the running `torch.profiler`, on the same clock
+  as the cards' kernels and copies; with no profiler running it is one
+  shared no-op context, so a span costs one check.
 - `trace(dir)` is a `torch.profiler.profile` context over CPU and CUDA
   activity; it exports a Chrome trace (Perfetto, chrome://tracing) into the
   directory.
@@ -19,6 +23,22 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range over the `with` block while a profiler runs, else a
+    no-op. The range is a function-scope RecordFunction: the profiler keeps
+    it among the calling thread's host operations (a `record_function`
+    range is a user annotation instead) and gives it no copy on a card's
+    timeline. The range type is private to torch, so it is
+    imported only while a profiler runs: without it the port still imports
+    and encodes, and only tracing fails."""
+    if torch.autograd._profiler_enabled():
+        from torch._C._profiler import _RecordFunctionFast
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
