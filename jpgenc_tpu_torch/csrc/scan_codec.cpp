@@ -14,6 +14,9 @@
 #include <cstring>
 #include <thread>
 #include <vector>
+#ifdef __SSE2__
+#include <emmintrin.h>
+#endif
 
 namespace {
 
@@ -313,6 +316,43 @@ static inline bool emit_packed_entry(int64_t pos, int64_t i, int32_t v,
     return true;
 }
 
+// One byte of stuff_ff's byte path: stores b and a 0x00 after it, and keeps
+// the 0x00 (returns 2) only when b is 0xFF. Branch-free; a 0x00 not kept
+// lands on the next byte, inside the 2 bytes a byte may take.
+static inline int64_t stuff_byte(uint8_t b, uint8_t* dst) {
+    dst[0] = b;
+    dst[1] = 0x00;
+    return 1 + (b == 0xFF);
+}
+
+// Copies src[0, n) to dst with a 0x00 stuffed after every 0xFF (T.81
+// F.1.2.3); returns the bytes written. Entropy-coded data holds a 0xFF once
+// in a few hundred bytes, so the scan goes 16 bytes at a time (SSE2, part of
+// every x86-64): a chunk free of 0xFF is stored whole, a chunk that holds one
+// goes byte by byte through stuff_byte. All-0xFF input pays the byte path
+// plus one compare a chunk; without SSE2 every byte takes the byte path.
+// dst must hold 2 n bytes.
+static inline int64_t stuff_ff(const uint8_t* src, int64_t n, uint8_t* dst) {
+    int64_t i = 0, o = 0;
+#ifdef __SSE2__
+    constexpr int64_t kChunk = 16;
+    const __m128i ff = _mm_set1_epi8((char)0xFF);
+    for (; i + kChunk <= n; i += kChunk) {
+        __m128i v =
+            _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + i));
+        if (!_mm_movemask_epi8(_mm_cmpeq_epi8(v, ff))) {
+            _mm_storeu_si128(reinterpret_cast<__m128i*>(dst + o), v);
+            o += kChunk;
+            continue;
+        }
+        for (int64_t k = 0; k < kChunk; ++k)
+            o += stuff_byte(src[i + k], dst + o);
+    }
+#endif
+    for (; i < n; ++i) o += stuff_byte(src[i], dst + o);
+    return o;
+}
+
 }  // namespace
 
 extern "C" {
@@ -372,8 +412,9 @@ int decode_scan(const uint8_t* data, int64_t data_len,
 // capability contract keeps on host): the device downloads a COMPACT
 // unstuffed stream — per-segment byte runs (already 1-padded) packed
 // back-to-back without markers — and this inserts FF00 stuffing plus RSTn
-// joins at memcpy speed. u: concatenated segment bytes; seg_nbytes[s] bytes
-// per segment; RSTn after segment s for s < n_rst, numbered (first_rst+s)%8.
+// joins, one byte at a time. u: concatenated segment bytes; seg_nbytes[s]
+// bytes per segment; RSTn after segment s for s < n_rst, numbered
+// (first_rst+s)%8.
 // out must hold 2x total bytes + 2*n_seg. Returns output length.
 int64_t finalize_compact(const uint8_t* u, const int32_t* seg_nbytes,
                          int n_seg, int first_rst, int n_rst,
@@ -398,9 +439,12 @@ int64_t finalize_compact(const uint8_t* u, const int32_t* seg_nbytes,
 // segment s's ceil(bits/8) bytes starting at byte offset 4*wbase[s]
 // (wbase = exclusive cumsum of ceil(bits/32) rounded up to walign-word
 // chunks — walign MUST equal ops.pack.walign_for(blocks_per_segment) for
-// the layout that produced the stream). This sets each segment's
-// T.81 F.1.2.3 1-padding in its final byte, stuffs FF->FF00 and joins
-// segments with RSTn. out must hold 2x total bytes + 2*n_seg.
+// the layout that produced the stream). This stuffs FF->FF00 in each
+// segment's bytes but the last a chunk at a time (stuff_ff: runs free of
+// 0xFF are stored whole, a chunk that holds a 0xFF byte by byte, so dense
+// 0xFF costs no more than a byte loop), sets the T.81 F.1.2.3 1-padding in
+// the last byte and stuffs it alone, and joins segments with RSTn. out must
+// hold 2x total bytes + 2*n_seg.
 int64_t finalize_wcompact(const uint8_t* u, const int32_t* seg_nbits,
                           int n_seg, int first_rst, int n_rst, int walign,
                           uint8_t* out) {
@@ -410,11 +454,11 @@ int64_t finalize_wcompact(const uint8_t* u, const int32_t* seg_nbits,
         int64_t nbytes = (nbits + 7) >> 3;
         int pad = (int)(nbytes * 8 - nbits);
         const uint8_t* seg = u + 4 * wbase;
-        for (int64_t j = 0; j < nbytes; ++j) {
-            uint8_t b = seg[j];
-            if (j == nbytes - 1 && pad) b |= (uint8_t)((1 << pad) - 1);
-            out[o++] = b;
-            if (b == 0xFF) out[o++] = 0x00;
+        if (nbytes) {
+            o += stuff_ff(seg, nbytes - 1, out + o);
+            // the 1-padding can make the last byte 0xFF
+            o += stuff_byte(seg[nbytes - 1] | (uint8_t)((1 << pad) - 1),
+                            out + o);
         }
         if (s < n_rst) {
             out[o++] = 0xFF;

@@ -211,23 +211,77 @@ def test_pad_replicate_equals_reference():
                                                       32)))
 
 
-def _stream_case(seed, n_seg, walign):
+def _stream_case(seed, n_seg, walign, ff=None, nbytes=None):
+    """A word-compact stream (each segment from a walign-word boundary, the
+    words past its bytes left random) and the segments' bit counts.
+
+    ff None makes every fifth word 0xFFFFFFFF. Otherwise each segment's own
+    bytes are drawn free of 0xFF and then: ff = k > 0 makes one byte in k
+    0xFF (1: every byte; 0: none); "edges" makes 0xFF the bytes either side
+    of 8-, 16- and 32-byte boundaries; "pad" leaves 0xFF only where a
+    segment's 1-padding fills its last byte. nbytes: each segment's length
+    in bytes (a random bit count below 3000 by default)."""
     rng = np.random.default_rng(seed)
-    nbits = rng.integers(0, 3000, n_seg).astype(np.int32)
-    nw = int(tpack.seg_nwords_aligned(nbits.astype(np.int64), walign).sum())
-    words = rng.integers(0, 2 ** 32, nw + 3, dtype=np.uint64)
-    words[::5] = 0xFFFFFFFF                          # force FF stuffing
-    return words.astype(np.uint32).view(np.int32), nbits
+    if nbytes is None:
+        nbits = rng.integers(0, 3000, n_seg).astype(np.int32)
+    else:
+        nbytes = np.asarray(nbytes, np.int64)
+        pad = rng.integers(1 if ff == "pad" else 0, 8, n_seg) * (nbytes > 0)
+        nbits = (8 * nbytes - pad).astype(np.int32)
+    nwa = tpack.seg_nwords_aligned(nbits.astype(np.int64), walign)
+    words = rng.integers(0, 2 ** 32, int(nwa.sum()) + 3, dtype=np.uint64)
+    if ff is None:
+        words[::5] = 0xFFFFFFFF                      # force FF stuffing
+        return words.astype(np.uint32).view(np.int32), nbits
+    b = words.astype(np.uint32).view(np.uint8)
+    starts = 4 * (np.cumsum(nwa) - nwa)
+    for s0, bits in zip(starts, nbits):
+        n = (int(bits) + 7) >> 3
+        seg = rng.integers(0, 255, n).astype(np.uint8)
+        if ff == "edges":
+            seg[[j for j in (7, 8, 15, 16, 31, 32) if j < n]] = 0xFF
+        elif ff == "pad":
+            if n:
+                seg[-1] = 0xFF ^ ((1 << (8 * n - int(bits))) - 1)
+        elif ff:
+            seg[rng.random(n) < 1 / ff] = 0xFF
+        b[s0:s0 + n] = seg
+    return b.view(np.int32), nbits
 
 
-@pytest.mark.parametrize("n_seg,walign", [(1, 64), (5, 8), (3, 16)])
-def test_finalize_host_w_equals_reference(n_seg, walign, monkeypatch):
-    up, nbits = _stream_case(n_seg, n_seg, walign)
-    ref = jeng.finalize_host_w(up, nbits, 2, n_seg - 1, walign)
-    assert teng.finalize_host_w(up, nbits, 2, n_seg - 1, walign) == ref
+# (seed, n_seg, walign, ff, nbytes, first_rst, n_rst): 0xFF densities, 0xFF
+# either side of a chunk boundary, a last byte made 0xFF by its padding,
+# segments of 0-40 bytes (tails short of a chunk), RSTn after only some
+# segments (a stripe's sub-image)
+_STUFFING = [
+    pytest.param((20, 3, 8, 0, [1000, 17, 4000], 2, 2), id="no-ff"),
+    pytest.param((21, 2, 64, 256, [40000, 3001], 5, 1), id="ff-1-in-256"),
+    pytest.param((22, 4, 16, 16, [5000, 16, 15, 2048], 0, 3),
+                 id="ff-1-in-16"),
+    pytest.param((23, 3, 1, 1, [3000, 1, 33], 7, 2), id="ff-every-byte"),
+    pytest.param((24, 5, 8, "edges", [9, 16, 17, 33, 48], 6, 4),
+                 id="ff-at-chunk-edges"),
+    pytest.param((25, 40, 1, "pad", list(range(1, 41)), 3, 39),
+                 id="ff-from-padding"),
+    pytest.param((26, 41, 8, 8, list(range(41)), 1, 40), id="lengths-0-40"),
+    pytest.param((27, 6, 16, 64, [700, 0, 90, 31, 32, 2500], 7, 2),
+                 id="rst-after-some"),
+]
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param((1, 1, 64, None, None, 2, 0), id="1-64"),
+    pytest.param((5, 5, 8, None, None, 2, 4), id="5-8"),
+    pytest.param((3, 3, 16, None, None, 2, 2), id="3-16"),
+    *_STUFFING])
+def test_finalize_host_w_equals_reference(case, monkeypatch):
+    seed, n_seg, walign, ff, nbytes, first, n_rst = case
+    up, nbits = _stream_case(seed, n_seg, walign, ff, nbytes)
+    ref = jeng.finalize_host_w(up, nbits, first, n_rst, walign)
+    assert teng.finalize_host_w(up, nbits, first, n_rst, walign) == ref
     # the numpy fallback (no C++ library) writes the same bytes
     monkeypatch.setattr(teng.native, "available", lambda: False)
-    assert teng.finalize_host_w(up, nbits, 2, n_seg - 1, walign) == ref
+    assert teng.finalize_host_w(up, nbits, first, n_rst, walign) == ref
 
 
 def test_fetch_split_equals_reference():
@@ -464,14 +518,23 @@ def test_ref_encoder_and_native_equal_reference(sub, dri, optimize):
     assert np.abs(ours).sum() > 0
 
 
-@pytest.mark.parametrize("n_seg,walign", [(1, 64), (5, 8)])
-def test_native_finalize_wcompact_equals_reference(n_seg, walign):
+@pytest.mark.parametrize("case", [
+    pytest.param((11, 1, 64, None, None, 1, 0), id="1-64"),
+    pytest.param((15, 5, 8, None, None, 1, 4), id="5-8"),
+    *_STUFFING])
+def test_native_finalize_wcompact_equals_reference(case, monkeypatch):
     from jpgenc_tpu import native as jn
     from jpgenc_tpu_torch import native as tn
-    up, nbits = _stream_case(10 + n_seg, n_seg, walign)
-    ref = jn.finalize_wcompact(up, nbits, 1, n_seg - 1, walign)
+    seed, n_seg, walign, ff, nbytes, first, n_rst = case
+    up, nbits = _stream_case(seed, n_seg, walign, ff, nbytes)
+    ref = jn.finalize_wcompact(up, nbits, first, n_rst, walign)
     assert ref is not None
-    assert tn.finalize_wcompact(up, nbits, 1, n_seg - 1, walign) == ref
+    assert tn.finalize_wcompact(up, nbits, first, n_rst, walign) == ref
+    # the codec built without SSE2 stuffs every byte alone: the same bytes
+    monkeypatch.setattr(tn, "GXX_FLAGS", [*tn.GXX_FLAGS, "-U__SSE2__"])
+    monkeypatch.setattr(tn, "LIB", None)
+    assert tn.available()
+    assert tn.finalize_wcompact(up, nbits, first, n_rst, walign) == ref
 
 
 def test_fixtures_and_bitio_equal_reference():
