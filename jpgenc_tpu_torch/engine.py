@@ -257,17 +257,21 @@ def split_fetch(arr: np.ndarray, k: int, n_seg: int):
 
 
 def finalize_host_w(up: np.ndarray, nbits: np.ndarray, first_rst: int,
-                    n_rst: int, walign: int) -> bytes:
+                    n_rst: int, walign: int, head: bytes = b"",
+                    tail: bytes = b"") -> bytes:
     """Word-compact stream -> stuffed scan with RSTn joins (engine.py:625-656):
     sets the T.81 F.1.2.3 1-padding, stuffs FF -> FF00 and inserts RSTn after
-    the first n_rst segments. C++ (jpgenc_tpu_torch.native.finalize_wcompact)
-    with the reference's numpy fallback."""
+    the first n_rst segments; head and tail (a file's headers and EOI) come
+    before and after it in the one bytes object. C++
+    (jpgenc_tpu_torch.native.finalize_wcompact) with the reference's numpy
+    fallback."""
     if native.available():
-        out = native.finalize_wcompact(up, nbits, first_rst, n_rst, walign)
+        out = native.finalize_wcompact(up, nbits, first_rst, n_rst, walign,
+                                       head, tail)
         if out is not None:
             return out
     b = np.ascontiguousarray(up).view(np.uint8)
-    parts = []
+    parts = [head]
     wb = 0
     for s, bits in enumerate(np.asarray(nbits)):
         bits = int(bits)
@@ -281,6 +285,7 @@ def finalize_host_w(up: np.ndarray, nbits: np.ndarray, first_rst: int,
         if s < n_rst:
             parts.append(bytes([0xFF, 0xD0 + ((first_rst + s) & 7)]))
         wb += int(pack.seg_nwords_aligned(bits, walign))
+    parts.append(tail)
     return b"".join(parts)
 
 
@@ -377,24 +382,31 @@ class EncodePlan(nn.Module):
 
     def zz_and_histogram(self, imgs: torch.Tensor):
         """Optimize-mode pass 1 (engine.py:502-505): zz_scan and the
-        histogram of its blocks."""
-        zz, dcdiff = self.zz_scan(imgs)
-        return zz, dcdiff, self.histogram(zz, dcdiff)
+        histogram of its blocks. The span `jpgenc.pass1` covers both, the
+        histogram's own wait for the device included."""
+        with span("jpgenc.pass1"):
+            zz, dcdiff = self.zz_scan(imgs)
+            return zz, dcdiff, self.histogram(zz, dcdiff)
 
     def zz_islow_and_histogram(self, imgs: torch.Tensor):
-        """Optimize-mode pass 1 of the integer path (engine.py:337-341)."""
-        zz, dcdiff = self.zz_islow(imgs)
-        return zz, dcdiff, self.histogram(zz, dcdiff)
+        """Optimize-mode pass 1 of the integer path (engine.py:337-341),
+        under the same span."""
+        with span("jpgenc.pass1"):
+            zz, dcdiff = self.zz_islow(imgs)
+            return zz, dcdiff, self.histogram(zz, dcdiff)
 
     def optimized_tables(self, hist: torch.Tensor):
         """Between the passes, on the host: the histogram [B, 2, 2, 256] ->
         ([(dc_tables, ac_tables)] per image, for the headers, and the same
         as packed tables with a leading image dimension on the plan's
-        device, for pass 2)."""
+        device, for pass 2). The wait for the histogram's copy is the span
+        `jpgenc.hist_wait`, the table build and its upload `jpgenc.tables`."""
         n_tabs = 1 if self.layout.is_gray else 2
-        freqs = to_host_async(hist).wait()
-        per_img = [tables_from_freq(f, n_tabs) for f in freqs]
-        return per_img, device_tables(*zip(*per_img), self.q.device)
+        with span("jpgenc.hist_wait"):
+            freqs = to_host_async(hist).wait()
+        with span("jpgenc.tables"):
+            per_img = [tables_from_freq(f, n_tabs) for f in freqs]
+            return per_img, device_tables(*zip(*per_img), self.q.device)
 
     def entropy_from_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor, tables,
                         cap_u: int, w_blk: int):
@@ -440,10 +452,12 @@ class EncodePlan(nn.Module):
             self.prefix_guess = max(t, 1024)
         return [(up[i], nb[i], bool(ok[i])) for i in range(len(nb))]
 
-    def finalize(self, outs, cap_u: int, rst=None, started=None
-                 ) -> list[bytes | None]:
+    def finalize(self, outs, cap_u: int, rst=None, started=None,
+                 heads=None, tail: bytes = b"") -> list[bytes | None]:
         """fetch + host finalize: the entropy-coded scan (stuffed, no
         markers) per image; None for an image that overflowed this tier.
+        heads (one bytes a image) and tail frame each scan in the same
+        bytes object: with the file's headers and EOI, a whole file.
 
         rst gives, per image, (first_rst, n_rst, n_seg_keep) for stripe
         sub-images of a larger scan: keep the first n_seg_keep segments
@@ -458,24 +472,28 @@ class EncodePlan(nn.Module):
             for i, (up, nb, ok) in enumerate(fetched):
                 first, n_rst, keep = (0, len(nb) - 1, len(nb)) \
                     if rst is None else rst[i]
-                out.append(finalize_host_w(up, nb[:keep], first, n_rst,
-                                           self.walign) if ok else None)
+                out.append(finalize_host_w(
+                    up, nb[:keep], first, n_rst, self.walign,
+                    b"" if heads is None else heads[i], tail) if ok else None)
         return out
 
     def encode_scans(self, imgs: torch.Tensor, cap_u: int, w_blk: int,
-                     rst=None) -> list[bytes | None]:
+                     rst=None, heads=None, tail: bytes = b""
+                     ) -> list[bytes | None]:
         """Entropy-coded scans (stuffed, no markers) for a batch on the
-        fused path; None for an image that overflowed this tier. rst: as
-        finalize."""
-        return self.finalize(self(imgs, cap_u, w_blk), cap_u, rst)
+        fused path; None for an image that overflowed this tier. rst,
+        heads, tail: as finalize."""
+        return self.finalize(self(imgs, cap_u, w_blk), cap_u, rst,
+                             heads=heads, tail=tail)
 
     def entropy_scans_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor,
-                         tables, cap_u: int, w_blk: int, rst=None
+                         tables, cap_u: int, w_blk: int, rst=None,
+                         heads=None, tail: bytes = b""
                          ) -> list[bytes | None]:
         """The same from pass 1's cached blocks and given tables (pass 2)."""
         return self.finalize(
             self.entropy_from_zz(zz, dcdiff, tables, cap_u, w_blk), cap_u,
-            rst)
+            rst, heads=heads, tail=tail)
 
 
 @functools.lru_cache(maxsize=16)

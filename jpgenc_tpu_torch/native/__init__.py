@@ -16,6 +16,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 
 import numpy as np
 
@@ -272,13 +273,29 @@ def finalize_compact(u: np.ndarray, seg_nbytes: np.ndarray,
     return out[:n].tobytes()
 
 
+_scratch = threading.local()
+
+
+def _out_buffer(n: int) -> np.ndarray:
+    """This thread's finalize buffer, at least n bytes. It is kept from call
+    to call (grown to the largest file the thread has made), so the stuffing
+    writes into memory already mapped and the one copy out of it is the
+    returned bytes."""
+    buf = getattr(_scratch, "buf", None)
+    if buf is None or buf.size < n:
+        buf = _scratch.buf = np.empty(n, np.uint8)
+    return buf
+
+
 def finalize_wcompact(u: np.ndarray, seg_nbits: np.ndarray,
-                      first_rst: int, n_rst: int,
-                      walign: int) -> bytes | None:
+                      first_rst: int, n_rst: int, walign: int,
+                      head: bytes = b"", tail: bytes = b"") -> bytes | None:
     """Word-compact device stream (LE u32 memory image = byte stream) ->
-    stuffed scan with RSTn joins. u: the downloaded u32 buffer viewed or
-    passed as bytes; seg_nbits: per-segment bit counts; walign: the
-    layout's wcompact chunk width (ops.pack.walign_for)."""
+    head + stuffed scan with RSTn joins + tail. u: the downloaded u32 buffer
+    viewed or passed as bytes; seg_nbits: per-segment bit counts; walign:
+    the layout's wcompact chunk width (ops.pack.walign_for); head and tail
+    (a file's headers and EOI) are written around the scan in the same
+    buffer."""
     lib = _load()
     if lib is None:
         return None
@@ -286,10 +303,13 @@ def finalize_wcompact(u: np.ndarray, seg_nbits: np.ndarray,
     seg_nbits = np.ascontiguousarray(seg_nbits, np.int32)
     n_seg = seg_nbits.size
     total = int(((seg_nbits.astype(np.int64) + 7) >> 3).sum())
-    out = np.empty(2 * total + 2 * n_seg + 2, np.uint8)
-    n = lib.finalize_wcompact(u, seg_nbits, n_seg, first_rst, n_rst,
-                              walign, out)
-    return out[:n].tobytes()
+    h = len(head)
+    out = _out_buffer(h + 2 * total + 2 * n_seg + 2 + len(tail))
+    out[:h] = np.frombuffer(head, np.uint8)
+    end = h + lib.finalize_wcompact(u, seg_nbits, n_seg, first_rst, n_rst,
+                                    walign, out[h:])
+    out[end:end + len(tail)] = np.frombuffer(tail, np.uint8)
+    return out[:end + len(tail)].tobytes()
 
 
 def finalize_scan(seg_words: np.ndarray, seg_bits: np.ndarray,

@@ -239,21 +239,24 @@ class _Entry:
                                               cap_u, w_blk)
         self.started = self.plan.start_fetch(self.outs)
 
-    def retry(self, j: int, cap_u: int, rst=None) -> bytes:
+    def retry(self, j: int, cap_u: int, rst=None, head: bytes = b"",
+              tail: bytes = b"") -> bytes:
         """Row j alone at the worst tier (w_blk 56, which cannot overflow):
         from the cached coefficients when there are any (with row j's own
-        tables where they are per image), else from its pixels. The whole
-        re-encode is the span `jpgenc.retry`."""
+        tables where they are per image), else from its pixels; head and
+        tail frame the scan as finalize's do. The whole re-encode is the
+        span `jpgenc.retry`."""
+        frame = dict(heads=[head], tail=tail)
         with span("jpgenc.retry"):
             if self.zz is not None:
                 tabs = tuple(t[j:j + 1] for t in self.tabs) \
                     if self.tabs[0].dim() == 3 else self.tabs
                 scan = self.plan.entropy_scans_zz(
                     self.zz[j:j + 1], self.dcdiff[j:j + 1], tabs, cap_u, 56,
-                    rst)[0]
+                    rst, **frame)[0]
             else:
                 scan = self.plan.encode_scans(self.x[j:j + 1], cap_u, 56,
-                                              rst)[0]
+                                              rst, **frame)[0]
         if scan is None:
             raise RuntimeError(_OVERFLOW)
         return scan
@@ -339,11 +342,12 @@ def encode_batch(imgs, quality: int = 75, subsampling: str = "420",
             elif e.zz is not None:
                 e.second_pass(e.plan.standard_tables, tight, w_blk)
         for e in entries:
-            scans = e.plan.finalize(e.outs, tight, started=e.started)
-            for j, (i, scan) in enumerate(zip(e.rows, scans)):
-                if scan is None:
-                    scan = e.retry(j, worst)
-                local[i] = hdrs.get(i, hdr) + scan + EOI
+            heads = [hdrs.get(i, hdr) for i in e.rows]
+            files = e.plan.finalize(e.outs, tight, started=e.started,
+                                    heads=heads, tail=EOI)
+            for j, (i, f) in enumerate(zip(e.rows, files)):
+                local[i] = f if f is not None else \
+                    e.retry(j, worst, head=heads[j], tail=EOI)
     full = _exchange_rows(local)
     return [full[i] for i in range(b)]
 

@@ -468,6 +468,36 @@ def test_encode_batch_optimize_on_cuda(cuda, gray):
                    for f in batch]
 
 
+def test_encode_batch_optimize_at_4k_on_cuda(cuda, monkeypatch):
+    """The benchmark's two-pass batch at its size: two 3840 x 2160
+    photographic frames on the card, the busier one over the tight tier and
+    retried with its own tables. One K1 rows launch, one kernel A launch
+    for the batch and one a retry, no plain version; the files are
+    api.encode's."""
+    from portbench import frames as bench_frames
+    amps = [1.98, 17.83]     # the photographic content's first and last level
+    x = bench_frames.frames(2, 2160, 3840, 3,
+                            bench_frames.generator(2**31 + 4, cuda), cuda,
+                            amps)
+    retried = []
+    real_retry = mesh._Entry.retry
+
+    def retry(self, j, *args, **kwargs):
+        retried.append(j)
+        return real_retry(self, j, *args, **kwargs)
+
+    monkeypatch.setattr(mesh._Entry, "retry", retry)
+    mods = (k1a_fused, seg_merge, k1_dct, block_pack)
+    plain = [m.plain_calls for m in mods]
+    a0, k0 = block_pack.launches, k1_dct.launches
+    out = mesh.encode_batch(x, 75, optimize=True, device="cuda")
+    assert retried and k1_dct.launches == k0 + 1
+    assert block_pack.launches == a0 + 1 + len(retried)
+    assert [m.plain_calls for m in mods] == plain
+    assert out == [api.encode(f, 75, optimize=True, device="cuda")
+                   for f in x]
+
+
 # --- the decoder: the reconstruction kernels and the decode paths ----------
 
 RECON_CASES = [("420", 61, 130), ("420", 32, 128), ("420", 17, 9),

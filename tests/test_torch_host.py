@@ -284,6 +284,25 @@ def test_finalize_host_w_equals_reference(case, monkeypatch):
     assert teng.finalize_host_w(up, nbits, first, n_rst, walign) == ref
 
 
+@pytest.mark.parametrize("case", _STUFFING[:3] + _STUFFING[-2:])
+def test_finalize_frames_the_scan_with_head_and_tail(case, monkeypatch):
+    """head + scan + tail in one bytes object: from the C++ finalize, whose
+    buffer a larger stream grew first, and from the numpy fallback; an
+    unframed finalize after a framed one is the bare scan."""
+    seed, n_seg, walign, ff, nbytes, first, n_rst = case
+    up, nbits = _stream_case(seed, n_seg, walign, ff, nbytes)
+    ref = jeng.finalize_host_w(up, nbits, first, n_rst, walign)
+    head, tail = bytes(range(7, 207)), b"\xff\xd9"
+    big_up, big_nbits = _stream_case(28, 2, 8, 256, [90000, 7000])
+    teng.finalize_host_w(big_up, big_nbits, 0, 1, 8, head, tail)
+    assert teng.finalize_host_w(up, nbits, first, n_rst, walign, head,
+                                tail) == head + ref + tail
+    assert teng.finalize_host_w(up, nbits, first, n_rst, walign) == ref
+    monkeypatch.setattr(teng.native, "available", lambda: False)
+    assert teng.finalize_host_w(up, nbits, first, n_rst, walign, head,
+                                tail) == head + ref + tail
+
+
 def test_fetch_split_equals_reference():
     wstream = torch.arange(2 * 40, dtype=torch.int32).reshape(2, 40)
     nbits = torch.tensor([[77], [1200]], dtype=torch.int32)

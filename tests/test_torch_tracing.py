@@ -1,8 +1,9 @@
 """The port's spans (`jpgenc_tpu_torch.utils.profiling.span`): profiler
 ranges entered only while a profiler runs, one `jpgenc.retry` for each image
 that overflowed the tight tier, one `jpgenc.fetch_wait` a fetch and one
-`jpgenc.refetch_wait` a refetch; they change no byte. `engine.fetched_bytes`
-loses nothing under threads.
+`jpgenc.refetch_wait` a refetch, and with optimize one `jpgenc.pass1`,
+`jpgenc.hist_wait` and `jpgenc.tables` an entry a call; they change no
+byte. `engine.fetched_bytes` loses nothing under threads.
 
 The test marked `gpu` needs CUDA (`stage_batch` pins only for a card); it
 imports no JAX, so it runs on the card's machine without the conftest:
@@ -185,6 +186,41 @@ def test_api_encode_counts_its_tiers():
     assert got == want
     fetches = _names(prof).count("jpgenc.fetch_wait")
     assert _tight_overflows(noise[None]) == 1 and fetches >= 2
+
+
+PASS_SPANS = ("jpgenc.pass1", "jpgenc.hist_wait", "jpgenc.tables")
+
+
+def _encode(entry: str, imgs: np.ndarray, optimize: bool) -> list:
+    if entry == "api":
+        return [api.encode(f, optimize=optimize, device="cpu") for f in imgs]
+    devices = ["cpu", "cpu"] if entry == "two_entries" else None
+    return mesh.encode_batch(imgs, optimize=optimize, device="cpu",
+                             devices=devices)
+
+
+@pytest.mark.parametrize("optimize", [True, False])
+@pytest.mark.parametrize("entry,per_call", [("one_entry", 1),
+                                            ("two_entries", 2), ("api", 1)])
+def test_two_pass_spans(entry, per_call, optimize):
+    """The two-pass mode's host stages: one `jpgenc.pass1`,
+    `jpgenc.hist_wait` and `jpgenc.tables` an entry a call with optimize,
+    none without; the table build holds no retry; the same files as
+    untraced."""
+    imgs = _frames(250)
+    want = _encode(entry, imgs, optimize)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = _encode(entry, imgs, optimize)
+    assert got == want
+    ranges = _ranges(prof)
+    names = [r[0] for r in ranges]
+    calls = len(imgs) if entry == "api" else 1
+    for name in PASS_SPANS:
+        assert names.count(name) == (calls * per_call if optimize else 0)
+    retries = [(s, e) for n, s, e in ranges if n == "jpgenc.retry"]
+    assert bool(retries) == (entry != "api")
+    for _, s, e in (r for r in ranges if r[0] == "jpgenc.tables"):
+        assert not any(s <= a < e for a, _ in retries)
 
 
 @pytest.fixture
