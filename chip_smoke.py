@@ -117,7 +117,7 @@ def main() -> None:
     from jpgenc_tpu_torch.layout import make_layout
     from jpgenc_tpu_torch.ops import entropy, pack
     from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused,
-                                           recon, seg_merge)
+                                           recon, seg_merge, symbol_hist)
     from jpgenc_tpu_torch.parallel import mesh
     from jpgenc_tpu_torch.ref import decoder as ref_decoder
     from jpgenc_tpu_torch.ref import encoder as ref_encoder
@@ -298,7 +298,8 @@ def main() -> None:
     imgs16 = fixtures.synth_batch(H, W, 16)
     x16 = torch.from_numpy(imgs16).to(dev)
     torch.cuda.synchronize()
-    counters = (k1a_fused, seg_merge, k1_dct, block_pack, recon)
+    counters = (k1a_fused, seg_merge, k1_dct, block_pack, recon,
+                symbol_hist)
 
     def reset_counters():
         decoder.unfused_calls = 0
@@ -494,12 +495,16 @@ def main() -> None:
 
     # --- phase 6: the histogram, then kernel A against its plain version ----
     dcdiff4 = block_pack.slot_metadata(plan.prev_same, zz_k1)
+    h_launches = symbol_hist.launches
     hist4 = entropy.symbol_histogram(zz_k1, dcdiff4, *slot_plan)
+    if symbol_hist.launches != h_launches + 1:
+        fail("the symbol histogram did not launch its kernel")
     t0 = time.perf_counter()
     ref_hist = ref_encoder.symbol_histogram(
         lay, raster(zz_k1[0].cpu().numpy().astype(np.int32)))
     if not np.array_equal(hist4[0].cpu().numpy(), ref_hist):
-        fail("torch symbol histogram != ref.encoder.symbol_histogram, frame 0")
+        fail("symbol histogram kernel != ref.encoder.symbol_histogram, "
+             "frame 0")
     emit({"phase": "histogram", "exact": True,
           "symbols": int(ref_hist.sum()),
           "ref_histogram_s": round(time.perf_counter() - t0, 2)})
@@ -564,6 +569,11 @@ def main() -> None:
     opt_files, launches, plain, first_s, walls = drive(
         x16, ("k1_dct", "block_pack", "seg_merge"), 3, optimize=True)
     opt_launches = dict(launches)
+    # the histogram kernel's launches over the path's 4 calls (it is not
+    # among read_counters' kernels, whose sets every path checks exactly)
+    opt_hist_launches = symbol_hist.launches
+    if opt_hist_launches < 4:
+        fail(f"optimize: {opt_hist_launches} histogram launches in 4 calls")
     zz16_k1 = k1_dct.fused_pixels_to_scan(x16, *ops)
     if not torch.equal(zz16_k1.reshape(-1), zz16.reshape(-1)):
         fail("K1 zz != K1A zz at B=16")
@@ -800,8 +810,23 @@ def main() -> None:
         dense, ddc, *slot_plan, tabs, 56), 10)
     a_dense_bits = int(abits.to(torch.int64).sum())
     del dense, ddc, abits
+    # the histogram kernel at the optimize path's shapes against its plain
+    # version: every count equal
+    hist_plain16 = symbol_hist.histogram_plain(zz16_k1, dcdiff16, *slot_plan)
+    hist_differing = int((hist16 != hist_plain16).sum())
+    if hist_differing:
+        fail(f"symbol histogram kernel != histogram_plain in "
+             f"{hist_differing} bins, B=16")
+    del hist_plain16
     hist_ms = sync_ms(lambda: entropy.symbol_histogram(
+        zz16_k1, dcdiff16, *slot_plan), 20)
+    hist_plain_ms = sync_ms(lambda: symbol_hist.histogram_plain(
         zz16_k1, dcdiff16, *slot_plan), 5)
+    hist_ptxas = tile_sweep.ptxas_report(build.build_log,
+                                         ("symbol_hist_kernel",))
+    if any("0 bytes spill stores, 0 bytes spill loads" not in ln
+           for ln in hist_ptxas):
+        fail(f"the histogram kernel spills: {hist_ptxas}")
     torch.cuda.synchronize()
 
     # --- phase 10: the reconstruction kernels against their plain version ---
@@ -1952,7 +1977,7 @@ def main() -> None:
     # full cases 4 calls of 8 rows and 4 of 3 stripes, each over two
     # entries, one K1A and one merge tail an entry
     mp_small = {"k1a_fused", "k1a_gray", "seg_merge", "k1_dct", "k1_gray",
-                "block_pack", "recon", "recon_gray"}
+                "block_pack", "symbol_hist", "recon", "recon_gray"}
     for r_ in ranks:
         small, full = dict(r_["launches"]), dict(r_["launches_full"])
         if small.pop("plain_calls") or full.pop("plain_calls") \
@@ -2123,6 +2148,15 @@ def main() -> None:
          "plain_ms": round(a_plain_ms, 4),
          **bound(slots * (128 + 4 + 4 * 8 + 4) + 12 * lay.n_scan
                  + n_img * tab_b, pack_ops),
+         "library_ms": None},
+        {"name": "symbol_hist", "route": "cuda",
+         "source": "jpgenc_tpu_torch/csrc/symbol_hist.cu",
+         "replaces": "no Pallas kernel: jpgenc_tpu/ops/entropy.py "
+                     "symbol_histogram is XLA tensor code",
+         "launches": opt_hist_launches, "differing": hist_differing,
+         "tolerance": exact, "ms": round(hist_ms, 4),
+         "plain_ms": round(hist_plain_ms, 4), "ptxas": hist_ptxas,
+         **bound(slots * (128 + 4) + 12 * lay.n_scan + n_img * 4096, 0),
          "library_ms": None},
         {"name": "k1a_gray", "route": "cuda",
          "source": "jpgenc_tpu_torch/csrc/k1a_gray.cu",

@@ -111,6 +111,7 @@ KERNEL_COUNTERS = {
     "k1_color": ("k1_dct", "launches_color"),
     "k1_gray": ("k1_dct", "launches_gray"),
     "block_pack": ("block_pack", "launches"),
+    "symbol_hist": ("symbol_hist", "launches"),
     "recon": ("recon", "launches"),
     "recon_gray": ("recon", "launches_gray"),
 }

@@ -382,8 +382,9 @@ class EncodePlan(nn.Module):
 
     def zz_and_histogram(self, imgs: torch.Tensor):
         """Optimize-mode pass 1 (engine.py:502-505): zz_scan and the
-        histogram of its blocks. The span `jpgenc.pass1` covers both, the
-        histogram's own wait for the device included."""
+        histogram of its blocks. The span `jpgenc.pass1` covers both; on
+        the card both are launches that do not wait for the device (the
+        wait is optimized_tables' `jpgenc.hist_wait`)."""
         with span("jpgenc.pass1"):
             zz, dcdiff = self.zz_scan(imgs)
             return zz, dcdiff, self.histogram(zz, dcdiff)

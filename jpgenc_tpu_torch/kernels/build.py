@@ -57,6 +57,8 @@ SIGNATURES = {
                           _I, _I,                     # B, n_slots
                           _P, _P, _P, _I,             # ac_rows, dc_rows, misc, n_tables
                           _I, _P, _P, _P],            # w_blk, buf, bits, stream
+    "symbol_hist_launch": [_P, _P, _P, _P, _P,       # zz, dcdiff, actab, dctab, valid
+                           _I, _I, _P, _P],           # B, n_slots, out, stream
     "seg_merge_launch": [_P, _P, _I, _I, _I, _I,       # buf, bits, B, n_seg, spb, w_blk
                          _I, _I, _P,                  # cap_w, walign, scratch
                          _P, _P, _P, _P],             # wstream, nbits, ovf, stream

@@ -17,7 +17,7 @@ from jpgenc_tpu_torch.container import parser
 from jpgenc_tpu_torch.layout import make_layout
 from jpgenc_tpu_torch.ops import entropy, pack
 from jpgenc_tpu_torch.ops.cuda import (block_pack, k1_dct, k1a_fused, recon,
-                                       seg_merge)
+                                       seg_merge, symbol_hist)
 from jpgenc_tpu_torch.parallel import mesh
 from jpgenc_tpu_torch.ref import decoder as ref_decoder
 from jpgenc_tpu_torch.ref import encoder as ref_encoder
@@ -412,10 +412,94 @@ def test_histogram_on_cuda_equals_cpu(cuda):
     cpu = entropy.symbol_histogram(zz, block_pack.slot_metadata(prev, zz),
                                    *args)
     zc = zz.to(cuda)
+    before = (symbol_hist.launches, symbol_hist.plain_calls)
     gpu = entropy.symbol_histogram(
         zc, block_pack.slot_metadata(prev.to(cuda), zc),
         *(a.to(cuda) for a in args))
+    assert (symbol_hist.launches, symbol_hist.plain_calls) == \
+        (before[0] + 1, before[1])
     assert torch.equal(gpu.cpu(), cpu)
+
+
+def _kernel_equals_plain(cuda, zz, sp):
+    """The histogram kernel on zz [B, S, 64] (numpy int16) under the symbol
+    plan sp, against histogram_plain on the same card tensors: every count
+    equal, one launch, no plain call. Returns the counts."""
+    zt = torch.from_numpy(zz).to(cuda)
+    dcdiff = block_pack.slot_metadata(
+        torch.from_numpy(sp.prev_same.astype(np.int64)).to(cuda), zt)
+    plan = tuple(torch.from_numpy(a.astype(np.int32)).to(cuda)
+                 for a in (sp.ac_tab, sp.dc_tab, sp.valid))
+    before = (symbol_hist.launches, symbol_hist.plain_calls)
+    hist = entropy.symbol_histogram(zt, dcdiff, *plan)
+    torch.cuda.synchronize()
+    assert (symbol_hist.launches, symbol_hist.plain_calls) == \
+        (before[0] + 1, before[1])
+    plain = symbol_hist.histogram_plain(zt, dcdiff, *plan)
+    assert hist.dtype == torch.int32 and torch.equal(hist, plain)
+    return hist.cpu()
+
+
+def test_symbol_hist_kernel_hand_made_blocks(cuda):
+    """All-zero, DC only, position 63 alone (no EOB), zero runs of 15, 16,
+    17, 31, 32, 47 and 62 (ZRLs), AC values of SSSS 1-11 and +-2047, DC
+    differences up to +-4094, all-nonzero blocks; the rest random."""
+    sp = engine.make_symbol_plan(make_layout(48, 64, "420", 0))
+    zz = _blocks(21, 2, sp.valid.size)
+    zz[0, :40] = 0
+    zz[0, 1, 0] = 9                                  # DC only
+    zz[0, 2, 63] = 3                                 # position 63 alone
+    for i, r in enumerate((15, 16, 17, 31, 32, 47, 62)):
+        zz[0, 3 + i, r + 1] = -5 + 2 * i             # one run of r zeros
+    for s in range(1, 12):
+        zz[0, 9 + s, 1] = (1 << s) - 1
+        zz[0, 9 + s, 2] = -(1 << (s - 1))
+        zz[0, 9 + s, 0] = (-1) ** s * min((1 << s) - 1, 2047)
+    zz[0, 21, 1:3] = (2047, -2047)
+    zz[0, 22:24, 0] = (2047, -2047)
+    zz[0, 24] = (np.arange(64) % 7 - 3) | 1          # every position odd
+    zz[0, 25] = np.where(np.arange(64) % 2, 2047, -2047)
+    zz[0, 26, [1, 17, 34, 63]] = (1, -1, 2, -2)
+    hist = _kernel_equals_plain(cuda, zz, sp)
+    assert int(hist[0, 1, :, 0xF0].sum()) > 0        # ZRLs counted
+    assert int(hist[0, 0, :, 12].sum()) > 0          # DC SSSS 12
+    assert int(hist[0, 1, :, 0x0B].sum()) > 0        # AC SSSS 11
+
+
+@pytest.mark.parametrize("n_img", [1, 3, 16])
+@pytest.mark.parametrize("dri", [0, 7])
+@pytest.mark.parametrize("h,w,mode", [(200, 264, "420"), (200, 264, "422"),
+                                      (200, 264, "444"), (264, 296, "gray")])
+def test_symbol_hist_kernel_vs_plain(cuda, h, w, mode, dri, n_img):
+    """Random slots (_blocks) in every sampling, with and without pad slots
+    (DRI 7: valid == 0, their random blocks count nothing), over more than
+    one tile of slots and a ragged last tile."""
+    sp = engine.make_symbol_plan(make_layout(h, w, mode, dri))
+    assert sp.valid.size > symbol_hist.TILE and \
+        sp.valid.size % symbol_hist.TILE
+    assert bool(sp.valid.all()) == (dri == 0)
+    hist = _kernel_equals_plain(cuda, _blocks(dri + n_img, n_img,
+                                              sp.valid.size), sp)
+    if mode == "gray":
+        assert int(hist[:, :, 1].sum()) == 0
+
+
+def test_symbol_hist_kernel_on_4k_frames(cuda):
+    """K1 rows' coefficients of two 4K photographic frames (the benchmark's
+    content, its first and last level), through EncodePlan.histogram."""
+    from portbench import frames as bench_frames
+    x = bench_frames.frames(2, 2160, 3840, 3,
+                            bench_frames.generator(2**31 + 7, cuda), cuda,
+                            [1.98, 17.83])
+    plan = engine.get_plan(2160, 3840, "420", 75, "cuda")
+    zz, dcdiff = plan.zz_scan(x)
+    before = (symbol_hist.launches, symbol_hist.plain_calls)
+    hist = plan.histogram(zz, dcdiff)
+    torch.cuda.synchronize()
+    assert (symbol_hist.launches, symbol_hist.plain_calls) == \
+        (before[0] + 1, before[1])
+    assert torch.equal(hist, symbol_hist.histogram_plain(
+        zz, dcdiff, plan.ac_tab, plan.dc_tab, plan.valid))
 
 
 @pytest.mark.parametrize("optimize", [False, True])
