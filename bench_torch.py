@@ -235,12 +235,12 @@ class Bench:
         islow = dct_method == "islow"
         if not optimize and not islow:
             return lambda: plan(x, cap, w_blk)
-        pass1 = plan.zz_islow_and_histogram if islow else plan.zz_and_histogram
-        tabs = plan.optimized_tables(pass1(x)[2])[1] if optimize \
-            else plan.standard_tables
+        tabs = plan.optimized_tables(plan.zz_and_histogram(x, islow)[2])[1] \
+            if optimize else plan.standard_tables
 
         def stages():
-            zz, dcdiff = pass1(x)[:2] if optimize else plan.zz_islow(x)
+            zz, dcdiff = plan.zz_and_histogram(x, islow)[:2] if optimize \
+                else plan.zz_islow(x)
             return plan.entropy_from_zz(zz, dcdiff, tabs, cap, w_blk)
         return stages
 
@@ -265,7 +265,8 @@ class Bench:
             with st.stage("tables"):
                 tabs = plan.optimized_tables(hist)[1]
             with st.stage("pass2"):
-                plan.entropy_scans_zz(zz, dcdiff, tabs, cap, w_blk)
+                plan.finalize(
+                    plan.entropy_from_zz(zz, dcdiff, tabs, cap, w_blk), cap)
         out = {f"{k}_ms": 1e3 * v for k, v in st.records.items()}
         p1 = self.events_ms(lambda: plan.zz_and_histogram(x))
         p2 = self.events_ms(

@@ -589,7 +589,7 @@ def main() -> None:
         _, tb = pl.optimized_tables(hist)
         t2 = time.perf_counter()
         cap = engine.scan_caps(pl.layout, Q, "tight")[0]
-        scans = pl.entropy_scans_zz(zz, dcdiff, tb, cap, 8)
+        scans = pl.finalize(pl.entropy_from_zz(zz, dcdiff, tb, cap, 8), cap)
         t3 = time.perf_counter()
         if any(s is None for s in scans):
             fail("a frame overflowed the tight tier in the timed split")
@@ -1247,7 +1247,7 @@ def main() -> None:
     if dri_plain_equal:
         for i, scan in enumerate(plain_scans):
             if scan is None or dri_files[i] != (
-                    api.jfif_headers(dlay, Q) + scan + api.EOI):
+                    engine.jfif_headers(dlay, Q) + scan + engine.EOI):
                 fail(f"DRI 120 file {i} != the plain path's file")
     emit({"phase": "encode_batch_dri", "restart_interval": DRI,
           "segments": n_dseg, "frames": len(dri_files), "launches": launches,
@@ -1350,8 +1350,9 @@ def main() -> None:
     noise_small = np.random.default_rng(77).integers(0, 256, (32, 48, 3),
                                                      np.uint8)
     npl = engine.get_plan(32, 48, "444", 100, "cuda", 1)
-    if npl.encode_scans(torch.from_numpy(noise_small)[None].to(dev),
-                        *engine.tiers_for(npl.layout, 100)[-2]) != [None]:
+    safe = engine.tiers_for(npl.layout, 100)[-2]
+    if npl.finalize(npl(torch.from_numpy(noise_small)[None].to(dev), *safe),
+                    safe[0]) != [None]:
         fail("the small noise frame did not overflow the safe tier")
     small_case(noise_small, "444", 100, "32x48 noise Q100 DRI 1 worst tier",
                restart_interval=1)
@@ -1573,9 +1574,9 @@ def main() -> None:
                 1 if layout.is_gray else 2)
         else:
             dc_, ac_ = ref_encoder.standard_tables()
-        return (api.jfif_headers(layout, quality, dc_, ac_)
+        return (engine.jfif_headers(layout, quality, dc_, ac_)
                 + ref_encoder.entropy_scan(layout, blocks, dc_, ac_)
-                + api.EOI)
+                + engine.EOI)
 
     def islow_case(img, mode, what, n_frames=1, **kw):
         sub = "420" if mode == "gray" else mode

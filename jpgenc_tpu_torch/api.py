@@ -8,24 +8,9 @@ import numpy as np
 import torch
 
 from jpgenc_tpu_torch import config
-from jpgenc_tpu_torch.container import jfif
 from jpgenc_tpu_torch.decoder import decode, decode_batch  # noqa: F401  (public API re-exports)
-from jpgenc_tpu_torch.engine import (as_device_batch, get_plan,
-                                     qtables_for_quality, resolve_device,
-                                     tiers_for)
-from jpgenc_tpu_torch.ref import encoder as ref_encoder
-
-EOI = b"\xff\xd9"
-
-
-def jfif_headers(layout, quality: int, dc_tables=None, ac_tables=None
-                 ) -> bytes:
-    """SOI..SOS headers at `quality`, with the standard tables unless an
-    image's own (optimized) tables are given."""
-    if dc_tables is None:
-        dc_tables, ac_tables = ref_encoder.standard_tables()
-    return jfif.build_headers(layout, list(qtables_for_quality(quality)),
-                              dc_tables, ac_tables)
+from jpgenc_tpu_torch.engine import (EncodeJob, as_device_batch, get_plan,
+                                     resolve_device)
 
 
 def encode(img, quality: int = 75, subsampling: str = "420",
@@ -47,7 +32,8 @@ def encode(img, quality: int = 75, subsampling: str = "420",
     the cached coefficients. dct_method="islow" is the libjpeg-exact integer
     pipeline (api.py:78-88): the file is byte-identical to libjpeg-turbo's
     at matched settings; it also climbs the ladder from cached
-    coefficients, with the standard tables or, with optimize, its own."""
+    coefficients, with the standard tables or, with optimize, its own.
+    The image is an engine.EncodeJob of one row (EncodeJob.file)."""
     cfg = config.EncodeConfig(quality=quality, subsampling=subsampling,
                               restart_interval=restart_interval,
                               optimize_huffman=optimize, dct_method=dct_method)
@@ -60,25 +46,4 @@ def encode(img, quality: int = 75, subsampling: str = "420",
     mode = "gray" if x.dim() == 3 else cfg.subsampling
     plan = get_plan(x.shape[1], x.shape[2], mode, cfg.quality, str(dev),
                     cfg.restart_interval)
-    lay = plan.layout
-    islow = cfg.dct_method == "islow"
-    cached = cfg.optimize_huffman or islow     # pass 1 keeps zz on the device
-    hdr = jfif_headers(lay, cfg.quality)
-    if cfg.optimize_huffman:
-        zz, dcdiff, hist = (plan.zz_islow_and_histogram(x) if islow
-                            else plan.zz_and_histogram(x))
-        per_img, tabs = plan.optimized_tables(hist)
-        hdr = jfif_headers(lay, cfg.quality, *per_img[0])
-    elif islow:
-        (zz, dcdiff), tabs = plan.zz_islow(x), plan.standard_tables
-    for cap_u, w_blk in tiers_for(lay, cfg.quality):
-        if cached:
-            scan = plan.entropy_scans_zz(zz, dcdiff, tabs, cap_u, w_blk)[0]
-        else:
-            scan = plan.encode_scans(x, cap_u, w_blk)[0]
-        if scan is not None:
-            break
-    else:
-        raise RuntimeError("overflow at the worst capacity tier, which "
-                           "covers MAX_BLOCK_BITS: the encode is broken")
-    return hdr + scan + EOI
+    return EncodeJob(plan, cfg, x).file()

@@ -409,33 +409,9 @@ int decode_scan(const uint8_t* data, int64_t data_len,
 }
 
 // Final host pass of the production pipeline (the one piece of host work the
-// capability contract keeps on host): the device downloads a COMPACT
-// unstuffed stream — per-segment byte runs (already 1-padded) packed
-// back-to-back without markers — and this inserts FF00 stuffing plus RSTn
-// joins, one byte at a time. u: concatenated segment bytes; seg_nbytes[s]
-// bytes per segment; RSTn after segment s for s < n_rst, numbered
-// (first_rst+s)%8.
-// out must hold 2x total bytes + 2*n_seg. Returns output length.
-int64_t finalize_compact(const uint8_t* u, const int32_t* seg_nbytes,
-                         int n_seg, int first_rst, int n_rst,
-                         uint8_t* out) {
-    int64_t o = 0, p = 0;
-    for (int s = 0; s < n_seg; ++s) {
-        for (int32_t j = 0; j < seg_nbytes[s]; ++j) {
-            uint8_t b = u[p++];
-            out[o++] = b;
-            if (b == 0xFF) out[o++] = 0x00;
-        }
-        if (s < n_rst) {
-            out[o++] = 0xFF;
-            out[o++] = (uint8_t)(0xD0 + ((first_rst + s) & 7));
-        }
-    }
-    return o;
-}
-
-// Word-compact variant of finalize_compact: the device byte-swapped each
-// u32 so the downloaded buffer's memory image IS the byte stream, with
+// capability contract keeps on host), on the word-compact stream: the
+// device byte-swapped each u32 so the downloaded buffer's memory image IS
+// the byte stream, with
 // segment s's ceil(bits/8) bytes starting at byte offset 4*wbase[s]
 // (wbase = exclusive cumsum of ceil(bits/32) rounded up to walign-word
 // chunks — walign MUST equal ops.pack.walign_for(blocks_per_segment) for
@@ -558,33 +534,6 @@ int optimize_tables(const int64_t* freq256, int32_t* bits16, int32_t* vals) {
     if (total != n) return -1;
     return n;
 }
-
-// FF->FF00 stuffing + per-segment assembly used by the host fallback path:
-// words: [n_seg * w] u32 (MSB-first), bits: [n_seg].
-// out must hold worst case (2x bytes + 2 per segment). Returns output length.
-int64_t finalize_scan(const uint32_t* words, const int32_t* bits,
-                      int n_seg, int64_t w, int first_rst,
-                      uint8_t* out) {
-    int64_t o = 0;
-    for (int s = 0; s < n_seg; ++s) {
-        int64_t nbits = bits[s];
-        int64_t nbytes = (nbits + 7) >> 3;
-        int pad = (int)(nbytes * 8 - nbits);
-        const uint32_t* seg = words + (int64_t)s * w;
-        for (int64_t j = 0; j < nbytes; ++j) {
-            uint8_t b = (uint8_t)(seg[j >> 2] >> (8 * (3 - (j & 3))));
-            if (j == nbytes - 1 && pad) b |= (uint8_t)((1 << pad) - 1);
-            out[o++] = b;
-            if (b == 0xFF) out[o++] = 0x00;
-        }
-        if (s < n_seg - 1) {
-            out[o++] = 0xFF;
-            out[o++] = (uint8_t)(0xD0 + ((first_rst + s) & 7));
-        }
-    }
-    return o;
-}
-
 
 // Sparse variant: emit (flat coefficient index, value) pairs — the form
 // the TPU decode path uploads (decoder._rows_from_pairs, no dense round

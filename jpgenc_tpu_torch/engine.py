@@ -27,7 +27,10 @@ finalize joins them with RSTn.
 
 `EncodePlan` takes the role of the reference's `DevicePlan`: its buffers are
 the transform operators, the quant rows, the packed standard Huffman tables
-and the layout's symbol plan and scan gather.
+and the layout's symbol plan and scan gather. `EncodeJob` is the one order
+of the encode on a plan (pass 1, tables, pass 2, fetch and finalize, the
+re-code of an overflowed row) that api.encode and the distribution layer's
+encode_batch and encode_striped run.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 from torch import nn
 
 from jpgenc_tpu_torch import layout as L, native, tables as T
+from jpgenc_tpu_torch.container import jfif
 from jpgenc_tpu_torch.huffman import build_codes, optimize_tables
 from jpgenc_tpu_torch.ops import entropy, islow, pack
 from jpgenc_tpu_torch.ops.cuda import block_pack, k1_dct, k1a_fused, seg_merge
@@ -187,12 +191,31 @@ def scan_caps(layout, quality: int, tier: str = "safe") -> tuple[int, int]:
 
 def tiers_for(layout, quality: int) -> list[tuple[int, int]]:
     """The capacity ladder (api.py:51-55): (cap_u, w_blk) tight -> safe with
-    max(w, 24) -> worst with 56, duplicates dropped."""
+    max(w, 24) -> worst with 56, duplicates dropped, so tiers[0] is always
+    (tight, w_blk_for_quality) and tiers[-1] always (worst, 56)."""
     w_q = pack.w_blk_for_quality(quality)
     tiers = [(scan_caps(layout, quality, "tight")[0], w_q),
              (scan_caps(layout, quality, "safe")[0], max(w_q, 24)),
              (scan_caps(layout, quality, "worst")[0], 56)]
     return [t for i, t in enumerate(tiers) if t not in tiers[:i]]
+
+
+EOI = b"\xff\xd9"
+
+#: what an overflow at the worst tier raises: that tier covers
+#: MAX_BLOCK_BITS, so it cannot overflow
+OVERFLOW = ("overflow at the worst capacity tier, which covers "
+            "MAX_BLOCK_BITS: the encode is broken")
+
+
+def jfif_headers(layout, quality: int, dc_tables=None, ac_tables=None
+                 ) -> bytes:
+    """SOI..SOS headers at `quality`, with the standard tables unless an
+    image's own (optimized) tables are given."""
+    if dc_tables is None:
+        dc_tables, ac_tables = ref_encoder.standard_tables()
+    return jfif.build_headers(layout, list(qtables_for_quality(quality)),
+                              dc_tables, ac_tables)
 
 
 #: bytes that to_host_async has copied to the host since the last reset (the
@@ -299,9 +322,9 @@ class EncodePlan(nn.Module):
     (islow), the packed standard Huffman tables, the symbol plan of the
     split path and the scan gather of the islow path.
     forward(imgs, cap_u, w_blk) is the fused path; zz_and_histogram (or
-    zz_islow / zz_islow_and_histogram) and entropy_from_zz are the two
-    passes of the split path. Both return the compact word stream,
-    per-segment bit counts and the per-image overflow flag."""
+    zz_islow) and entropy_from_zz are the two passes of the split path.
+    Both return the compact word stream, per-segment bit counts and the
+    per-image overflow flag. EncodeJob runs them in order."""
 
     def __init__(self, layout, tables: dict, device="cuda"):
         super().__init__()
@@ -380,20 +403,13 @@ class EncodePlan(nn.Module):
         return entropy.symbol_histogram(zz, dcdiff, self.ac_tab, self.dc_tab,
                                         self.valid)
 
-    def zz_and_histogram(self, imgs: torch.Tensor):
-        """Optimize-mode pass 1 (engine.py:502-505): zz_scan and the
-        histogram of its blocks. The span `jpgenc.pass1` covers both; on
-        the card both are launches that do not wait for the device (the
-        wait is optimized_tables' `jpgenc.hist_wait`)."""
+    def zz_and_histogram(self, imgs: torch.Tensor, islow: bool = False):
+        """Optimize-mode pass 1 (engine.py:337-341, :502-505): zz_scan (islow:
+        zz_islow) and the histogram of its blocks. The span `jpgenc.pass1`
+        covers both; on the card both are launches that do not wait for the
+        device (the wait is optimized_tables' `jpgenc.hist_wait`)."""
         with span("jpgenc.pass1"):
-            zz, dcdiff = self.zz_scan(imgs)
-            return zz, dcdiff, self.histogram(zz, dcdiff)
-
-    def zz_islow_and_histogram(self, imgs: torch.Tensor):
-        """Optimize-mode pass 1 of the integer path (engine.py:337-341),
-        under the same span."""
-        with span("jpgenc.pass1"):
-            zz, dcdiff = self.zz_islow(imgs)
+            zz, dcdiff = (self.zz_islow if islow else self.zz_scan)(imgs)
             return zz, dcdiff, self.histogram(zz, dcdiff)
 
     def optimized_tables(self, hist: torch.Tensor):
@@ -478,24 +494,6 @@ class EncodePlan(nn.Module):
                     b"" if heads is None else heads[i], tail) if ok else None)
         return out
 
-    def encode_scans(self, imgs: torch.Tensor, cap_u: int, w_blk: int,
-                     rst=None, heads=None, tail: bytes = b""
-                     ) -> list[bytes | None]:
-        """Entropy-coded scans (stuffed, no markers) for a batch on the
-        fused path; None for an image that overflowed this tier. rst,
-        heads, tail: as finalize."""
-        return self.finalize(self(imgs, cap_u, w_blk), cap_u, rst,
-                             heads=heads, tail=tail)
-
-    def entropy_scans_zz(self, zz: torch.Tensor, dcdiff: torch.Tensor,
-                         tables, cap_u: int, w_blk: int, rst=None,
-                         heads=None, tail: bytes = b""
-                         ) -> list[bytes | None]:
-        """The same from pass 1's cached blocks and given tables (pass 2)."""
-        return self.finalize(
-            self.entropy_from_zz(zz, dcdiff, tables, cap_u, w_blk), cap_u,
-            rst, heads=heads, tail=tail)
-
 
 @functools.lru_cache(maxsize=16)
 def _cached_plan(height: int, width: int, subsampling: str, quality: int,
@@ -542,3 +540,119 @@ def device_tables(dc_tables, ac_tables, device) -> tuple:
     stacked = EntropyLUTs(dc=np.stack([x.dc for x in luts]),
                           ac=np.stack([x.ac for x in luts]))
     return tuple(t.to(device) for t in packed_tables(stacked))
+
+
+class EncodeJob:
+    """One device entry's share of an encode, from pixels (or given
+    coefficients) to files: the order of the encode, written once for
+    api.encode, mesh.encode_batch and mesh.encode_striped.
+
+      first_pass()   the fused K1A + merge tail at tiers[0] with its fetch
+                     started, or pass 1's cached coefficients (K1 rows or
+                     the islow pipeline; with optimize, their histogram)
+      second_pass()  tables(), then, from cached coefficients, kernel A +
+                     merge tail at tiers[0] with its fetch started
+      finish()       fetch + host finalize at tiers[0]: one file a row,
+                     None where a row overflowed
+      climb(j, ladder)  row j alone again, up the caller's ladder
+
+    A caller with several jobs runs each step over all of them before the
+    next, so that every entry's kernels and fetch are enqueued before any
+    entry waits. tiers is tiers_for(plan.layout, quality); one image climbs
+    tiers[1:] (file()), a batch's overflowed row goes to tiers[-1], the
+    worst tier, at once.
+
+    x: the rows' pixels on the plan's device; zz instead: their
+    scan-ordered zigzag coefficients ([B, S, 64] int16, as pass 1 leaves
+    them), coded by kernel A. rst: per row, (first_rst, n_rst, n_seg_keep)
+    for stripes of a larger scan (EncodePlan.finalize), which the caller
+    frames; otherwise each row is a whole file, headers to EOI."""
+
+    def __init__(self, plan, cfg, x=None, zz=None, rst=None):
+        self.plan, self.cfg, self.x, self.zz, self.rst = plan, cfg, x, zz, rst
+        self.n = len(x if x is not None else zz)
+        self.tiers = tiers_for(plan.layout, cfg.quality)
+        self.dcdiff = self.hist = self.tabs = self.heads = None
+        self.outs = self.started = None
+
+    def first_pass(self) -> None:
+        """Enqueue pass 1; nothing here waits for the device."""
+        plan, x = self.plan, self.x
+        if x is None:
+            self.dcdiff = block_pack.slot_metadata(plan.prev_same, self.zz)
+            if self.cfg.optimize_huffman:
+                self.hist = plan.histogram(self.zz, self.dcdiff)
+        elif self.cfg.optimize_huffman:
+            self.zz, self.dcdiff, self.hist = plan.zz_and_histogram(
+                x, self.cfg.dct_method == "islow")
+        elif self.cfg.dct_method == "islow":
+            self.zz, self.dcdiff = plan.zz_islow(x)
+        else:
+            self.outs = plan(x, *self.tiers[0])
+            self.started = plan.start_fetch(self.outs)
+
+    def tables(self, shared=None) -> None:
+        """Pass 2's Huffman tables and each row's headers: `shared` (packed
+        tables, one set for all rows: the stripes of one scan, whose file
+        the caller heads), else with optimize each image's own
+        (optimized_tables: waits for the histogram), else the plan's
+        standard set."""
+        lay, q = self.plan.layout, self.cfg.quality
+        if shared is not None:
+            self.tabs = tuple(t.to(self.plan.q.device) for t in shared)
+        elif self.cfg.optimize_huffman:
+            per_img, self.tabs = self.plan.optimized_tables(self.hist)
+            self.heads = [jfif_headers(lay, q, dc, ac) for dc, ac in per_img]
+        else:
+            self.tabs = self.plan.standard_tables
+            self.heads = [jfif_headers(lay, q)] * self.n
+
+    def second_pass(self, shared=None) -> None:
+        """tables(shared), then pass 2 from the cached coefficients with its
+        fetch started (the fused pass coded the rows already)."""
+        self.tables(shared)
+        if self.zz is not None:
+            self.outs = self.plan.entropy_from_zz(
+                self.zz, self.dcdiff, self.tabs, *self.tiers[0])
+            self.started = self.plan.start_fetch(self.outs)
+
+    def _finalize(self, outs, cap_u: int, rows: slice, started=None):
+        if self.rst is not None:
+            return self.plan.finalize(outs, cap_u, self.rst[rows], started)
+        return self.plan.finalize(outs, cap_u, started=started,
+                                  heads=self.heads[rows], tail=EOI)
+
+    def finish(self) -> list[bytes | None]:
+        """Fetch and finalize the rows coded at tiers[0]."""
+        return self._finalize(self.outs, self.tiers[0][0], slice(None),
+                              self.started)
+
+    def recode(self, j: int, cap_u: int, w_blk: int) -> bytes | None:
+        """Row j alone at (cap_u, w_blk): from the cached coefficients with
+        row j's own tables where they are per image, else from its pixels;
+        None if it overflows."""
+        plan, r = self.plan, slice(j, j + 1)
+        if self.zz is not None:
+            tabs = tuple(t[r] for t in self.tabs) \
+                if self.tabs[0].dim() == 3 else self.tabs
+            outs = plan.entropy_from_zz(self.zz[r], self.dcdiff[r], tabs,
+                                        cap_u, w_blk)
+        else:
+            outs = plan(self.x[r], cap_u, w_blk)
+        return self._finalize(outs, cap_u, r)[0]
+
+    def climb(self, j: int, ladder) -> bytes:
+        """Row j recoded at each tier of `ladder` until one holds it."""
+        for tier in ladder:
+            out = self.recode(j, *tier)
+            if out is not None:
+                return out
+        raise RuntimeError(OVERFLOW)
+
+    def file(self) -> bytes:
+        """The job's one image as a file (api.encode): the passes at
+        tiers[0], then, while it overflows, the image again up tiers[1:]."""
+        self.first_pass()
+        self.second_pass()
+        out = self.finish()[0]
+        return out if out is not None else self.climb(0, self.tiers[1:])

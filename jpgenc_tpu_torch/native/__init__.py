@@ -82,7 +82,6 @@ def _load_inner():
     lib = ctypes.CDLL(so)
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     lib.decode_scan.restype = ctypes.c_int
     lib.decode_scan.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int,
@@ -91,14 +90,6 @@ def _load_inner():
         u8p, u8p, u8p, u8p,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         i32p,
-    ]
-    lib.finalize_scan.restype = ctypes.c_int64
-    lib.finalize_scan.argtypes = [
-        u32p, i32p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, u8p,
-    ]
-    lib.finalize_compact.restype = ctypes.c_int64
-    lib.finalize_compact.argtypes = [
-        u8p, i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
     ]
     lib.finalize_wcompact.restype = ctypes.c_int64
     lib.finalize_wcompact.argtypes = [
@@ -259,20 +250,6 @@ def optimize_tables(freq: np.ndarray) -> tuple[np.ndarray, np.ndarray] | None:
     return bits, vals[:n]
 
 
-def finalize_compact(u: np.ndarray, seg_nbytes: np.ndarray,
-                     first_rst: int, n_rst: int) -> bytes | None:
-    """Compact unstuffed segment bytes -> stuffed scan with RSTn joins."""
-    lib = _load()
-    if lib is None:
-        return None
-    u = np.ascontiguousarray(u, np.uint8)
-    seg_nbytes = np.ascontiguousarray(seg_nbytes, np.int32)
-    n_seg = seg_nbytes.size
-    out = np.empty(2 * int(seg_nbytes.sum()) + 2 * n_seg + 2, np.uint8)
-    n = lib.finalize_compact(u, seg_nbytes, n_seg, first_rst, n_rst, out)
-    return out[:n].tobytes()
-
-
 _scratch = threading.local()
 
 
@@ -310,22 +287,6 @@ def finalize_wcompact(u: np.ndarray, seg_nbits: np.ndarray,
                                     walign, out[h:])
     out[end:end + len(tail)] = np.frombuffer(tail, np.uint8)
     return out[:end + len(tail)].tobytes()
-
-
-def finalize_scan(seg_words: np.ndarray, seg_bits: np.ndarray,
-                  first_rst: int = 0) -> bytes | None:
-    """Host fallback finalize: words+bits -> stuffed scan with RSTn joins."""
-    lib = _load()
-    if lib is None:
-        return None
-    seg_words = np.ascontiguousarray(seg_words, np.uint32)
-    seg_bits = np.ascontiguousarray(seg_bits, np.int32)
-    n_seg, w = seg_words.shape
-    worst = int(seg_bits.sum() // 8 + n_seg) * 2 + 2 * n_seg + 16
-    out = np.empty(worst, np.uint8)
-    n = lib.finalize_scan(seg_words.reshape(-1), seg_bits, n_seg, w,
-                          first_rst, out)
-    return out[:n].tobytes()
 
 
 def decode_scan_sparse(scan_data: bytes, layout, comp_dc_tab, comp_ac_tab,

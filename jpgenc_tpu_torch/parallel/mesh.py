@@ -30,21 +30,15 @@ import numpy as np
 import torch
 
 from jpgenc_tpu_torch import config, decoder
-from jpgenc_tpu_torch.api import EOI, jfif_headers
 from jpgenc_tpu_torch.container.parser import parse_jpeg
-from jpgenc_tpu_torch.engine import (as_device_batch, get_plan,
+from jpgenc_tpu_torch.engine import (EOI, EncodeJob, as_device_batch,
+                                     get_plan, jfif_headers,
                                      luts_from_tables, resolve_device,
-                                     scan_caps, tables_from_freq,
-                                     to_host_async)
+                                     tables_from_freq, to_host_async)
 from jpgenc_tpu_torch.layout import make_layout
 from jpgenc_tpu_torch.ops.cuda.block_pack import packed_tables
-from jpgenc_tpu_torch.ops.pack import w_blk_for_quality
 from jpgenc_tpu_torch.parallel import multihost
-from jpgenc_tpu_torch.ref.encoder import standard_tables
 from jpgenc_tpu_torch.utils.profiling import span
-
-_OVERFLOW = ("overflow at the worst capacity tier, which covers "
-             "MAX_BLOCK_BITS")
 
 
 def resolve_devices(devices=None, device="cuda") -> list[torch.device]:
@@ -220,63 +214,11 @@ def _batch_parts(imgs, staged, devs) -> tuple[int, list[tuple]]:
                        for d, r in _owned_split(len(imgs), devs) if len(r)]
 
 
-class _Entry:
-    """One device entry's share of a call: its plan, its rows (images or
-    stripes) and their device batch, and what its passes left on the
-    device (cached coefficients, the histogram, the merge tail's outputs
-    and their fetch in flight)."""
-
-    def __init__(self, plan, rows: range, x: torch.Tensor):
-        self.plan, self.rows, self.x = plan, rows, x
-        self.zz = self.dcdiff = self.hist = self.tabs = None
-        self.outs = self.started = None
-
-    def second_pass(self, tabs, cap_u: int, w_blk: int) -> None:
-        """Kernel A from the cached coefficients with `tabs`, then the
-        merge tail; its fetch starts behind them."""
-        self.tabs = tabs
-        self.outs = self.plan.entropy_from_zz(self.zz, self.dcdiff, tabs,
-                                              cap_u, w_blk)
-        self.started = self.plan.start_fetch(self.outs)
-
-    def retry(self, j: int, cap_u: int, rst=None, head: bytes = b"",
-              tail: bytes = b"") -> bytes:
-        """Row j alone at the worst tier (w_blk 56, which cannot overflow):
-        from the cached coefficients when there are any (with row j's own
-        tables where they are per image), else from its pixels; head and
-        tail frame the scan as finalize's do. The whole re-encode is the
-        span `jpgenc.retry`."""
-        frame = dict(heads=[head], tail=tail)
-        with span("jpgenc.retry"):
-            if self.zz is not None:
-                tabs = tuple(t[j:j + 1] for t in self.tabs) \
-                    if self.tabs[0].dim() == 3 else self.tabs
-                scan = self.plan.entropy_scans_zz(
-                    self.zz[j:j + 1], self.dcdiff[j:j + 1], tabs, cap_u, 56,
-                    rst, **frame)[0]
-            else:
-                scan = self.plan.encode_scans(self.x[j:j + 1], cap_u, 56,
-                                              rst, **frame)[0]
-        if scan is None:
-            raise RuntimeError(_OVERFLOW)
-        return scan
-
-
-def _first_pass(entries: list, cfg, cap_u: int, w_blk: int) -> None:
-    """Enqueue every entry's first pass before anything is fetched: the
-    fused kernels with their fetch started, or the cached coefficients
-    (islow: the integer pipeline) and, with optimize, their histogram."""
-    islow = cfg.dct_method == "islow"
-    for e in entries:
-        if cfg.optimize_huffman:
-            e.zz, e.dcdiff, e.hist = (
-                e.plan.zz_islow_and_histogram(e.x) if islow
-                else e.plan.zz_and_histogram(e.x))
-        elif islow:
-            e.zz, e.dcdiff = e.plan.zz_islow(e.x)
-        else:
-            e.outs = e.plan(e.x, cap_u, w_blk)
-            e.started = e.plan.start_fetch(e.outs)
+def _retry(job, j: int) -> bytes:
+    """Row j of a job alone at the worst tier (w_blk 56, which cannot
+    overflow): the span `jpgenc.retry`."""
+    with span("jpgenc.retry"):
+        return job.climb(j, job.tiers[-1:])
 
 
 def encode_batch(imgs, quality: int = 75, subsampling: str = "420",
@@ -289,9 +231,9 @@ def encode_batch(imgs, quality: int = 75, subsampling: str = "420",
 
     devices: None (one entry, `device`), a list of devices, or a
     config.MeshConfig (resolve_devices). The rows split contiguously over
-    the entries; each entry encodes its rows with its device's plan, every
-    entry's kernels are enqueued before any result is fetched, and the
-    files come back in row order. Under several processes
+    the entries; each entry's rows are one engine.EncodeJob on its
+    device's plan, every entry's kernels are enqueued before any result is
+    fetched, and the files come back in row order. Under several processes
     (parallel.multihost) each encodes the rows of owned_indices(B) on its
     own entries and every process returns the whole list.
 
@@ -320,34 +262,18 @@ def encode_batch(imgs, quality: int = 75, subsampling: str = "420",
     devs = resolve_devices(devices, device)
     b, parts = _batch_parts(imgs, staged, devs)
     local: dict[int, bytes] = {}
-    if parts:
-        x0 = parts[0][2]
-        mode = "gray" if x0.dim() == 3 else cfg.subsampling
-        entries = [_Entry(get_plan(x.shape[1], x.shape[2], mode, cfg.quality,
-                                   str(d), cfg.restart_interval), rows, x)
-                   for d, rows, x in parts]
-        lay = entries[0].plan.layout
-        tight = scan_caps(lay, cfg.quality, "tight")[0]
-        worst = scan_caps(lay, cfg.quality, "worst")[0]
-        w_blk = w_blk_for_quality(cfg.quality)
-        _first_pass(entries, cfg, tight, w_blk)
-        hdr = jfif_headers(lay, cfg.quality)
-        hdrs: dict[int, bytes] = {}
-        for e in entries:
-            if cfg.optimize_huffman:
-                per_img, tabs = e.plan.optimized_tables(e.hist)
-                hdrs.update((i, jfif_headers(lay, cfg.quality, dc, ac))
-                            for i, (dc, ac) in zip(e.rows, per_img))
-                e.second_pass(tabs, tight, w_blk)
-            elif e.zz is not None:
-                e.second_pass(e.plan.standard_tables, tight, w_blk)
-        for e in entries:
-            heads = [hdrs.get(i, hdr) for i in e.rows]
-            files = e.plan.finalize(e.outs, tight, started=e.started,
-                                    heads=heads, tail=EOI)
-            for j, (i, f) in enumerate(zip(e.rows, files)):
-                local[i] = f if f is not None else \
-                    e.retry(j, worst, head=heads[j], tail=EOI)
+    mode = "gray" if parts and parts[0][2].dim() == 3 else cfg.subsampling
+    jobs = [(rows, EncodeJob(get_plan(x.shape[1], x.shape[2], mode,
+                                      cfg.quality, str(d),
+                                      cfg.restart_interval), cfg, x))
+            for d, rows, x in parts]
+    for _, job in jobs:
+        job.first_pass()
+    for _, job in jobs:
+        job.second_pass()
+    for rows, job in jobs:
+        for j, (i, f) in enumerate(zip(rows, job.finish())):
+            local[i] = f if f is not None else _retry(job, j)
     full = _exchange_rows(local)
     return [full[i] for i in range(b)]
 
@@ -416,9 +342,9 @@ def encode_striped(img, n_stripes: int, quality: int = 75,
     MCU row; an explicit `restart_interval` must then divide the MCUs per
     row.
 
-    The stripes are one batch of sub-images under one plan (K1A and the
-    merge tail; optimize or islow: pass 1, then kernel A with ONE shared
-    table set). With optimize the per-stripe histograms are summed on the
+    The stripes are one batch of sub-images under one plan, an
+    engine.EncodeJob an entry (K1A and the merge tail; optimize or islow:
+    pass 1, then kernel A with ONE shared table set). With optimize the per-stripe histograms are summed on the
     host, with the stripes that hold padding rows (and the islow tail)
     counted under their true-height layout instead, so the tables equal the
     unstriped encode's. With dct_method="islow" the last live stripe is
@@ -491,26 +417,23 @@ def encode_striped(img, n_stripes: int, quality: int = 75,
     if tail_fix:
         assert make_layout(tail_h, w, mode, r).n_segments \
             == segs_kept[last_live]
-    tight = scan_caps(stripe_layout, q, "tight")[0]
-    worst = scan_caps(stripe_layout, q, "worst")[0]
-    w_blk = w_blk_for_quality(q)
-    entries = [_Entry(get_plan(stripe_h, w, mode, q, str(d), r), rows,
-                      _stripe_batch(img, rows, stripe_h, d))
-               for d, rows in _owned_split(n_stripes, devs) if len(rows)]
-    _first_pass(entries, cfg, tight, w_blk)
+    jobs = [(rows, EncodeJob(get_plan(stripe_h, w, mode, q, str(d), r), cfg,
+                             _stripe_batch(img, rows, stripe_h, d),
+                             rst=[rst[s] for s in rows]))
+            for d, rows in _owned_split(n_stripes, devs) if len(rows)]
+    for _, job in jobs:
+        job.first_pass()
 
     def true_tail(dev):
-        """The last live stripe under its true-height layout on `dev`:
-        (plan, zz, dcdiff[, histogram])."""
-        tplan = get_plan(tail_h, w, mode, q, str(dev), r)
-        x = as_device_batch(tail_img[None], dev)
-        if optimize:
-            return (tplan, *(tplan.zz_islow_and_histogram(x) if islow
-                             else tplan.zz_and_histogram(x)))
-        return (tplan, *tplan.zz_islow(x))
+        """The last live stripe under its true-height layout on `dev`, its
+        pass 1 enqueued."""
+        job = EncodeJob(get_plan(tail_h, w, mode, q, str(dev), r), cfg,
+                        as_device_batch(tail_img[None], dev),
+                        rst=[rst[last_live]])
+        job.first_pass()
+        return job
 
-    tail = None
-    dc_tables = ac_tables = None
+    tail = shared = dc_tables = ac_tables = None
     if optimize:
         # the stripes' histograms summed on the host (the reference's psum),
         # a stripe that holds padding rows (or the islow tail) counted under
@@ -519,42 +442,34 @@ def encode_striped(img, n_stripes: int, quality: int = 75,
         if tail_fix:
             fix.add(last_live)
         freq = np.zeros((2, 2, 256), np.int64)
-        for e in entries:
-            hist = to_host_async(e.hist).wait()
-            for j, s in enumerate(e.rows):
+        for rows, job in jobs:
+            hist = to_host_async(job.hist).wait()
+            for j, s in enumerate(rows):
                 if s not in fix:
                     freq += hist[j]
                 elif rows_kept[s]:
-                    tail = true_tail(e.x.device)
-                    freq += to_host_async(tail[3]).wait()[0]
+                    tail = true_tail(job.x.device)
+                    freq += to_host_async(tail.hist).wait()[0]
         freq = multihost.sum_array(freq)
         dc_tables, ac_tables = tables_from_freq(
             freq, 1 if stripe_layout.is_gray else 2)
         shared = packed_tables(luts_from_tables(dc_tables, ac_tables))
-    else:
-        shared = packed_tables(luts_from_tables(*standard_tables()))
-    for e in entries:
-        if e.zz is not None:
-            e.second_pass(tuple(t.to(e.x.device) for t in shared), tight,
-                          w_blk)
+    for _, job in jobs:
+        job.second_pass(shared)
 
     local: dict[int, bytes] = {}
-    for e in entries:
-        scans = e.plan.finalize(e.outs, tight, [rst[s] for s in e.rows],
-                                e.started)
-        for j, s in enumerate(e.rows):
+    for rows, job in jobs:
+        scans = job.finish()
+        for j, s in enumerate(rows):
             if segs_kept[s] == 0:
                 local[s] = b""        # pure-padding stripe past the image
             elif s == last_live and tail_fix:
-                tplan, tzz, tdc = (tail or true_tail(e.x.device))[:3]
-                local[s] = tplan.entropy_scans_zz(
-                    tzz, tdc, e.tabs,
-                    scan_caps(tplan.layout, q, "worst")[0], 56, [rst[s]])[0]
-                if local[s] is None:
-                    raise RuntimeError(_OVERFLOW)
+                tail = tail or true_tail(job.x.device)
+                tail.tables(job.tabs)
+                local[s] = tail.climb(0, tail.tiers[-1:])
             else:
                 local[s] = scans[j] if scans[j] is not None \
-                    else e.retry(j, worst, [rst[s]])
+                    else _retry(job, j)
     full_rows = _exchange_rows(local)
     scan = b"".join(full_rows[s] for s in range(n_stripes))
 

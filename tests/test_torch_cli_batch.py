@@ -28,11 +28,9 @@ from jpgenc_tpu.container.parser import parse_jpeg
 from jpgenc_tpu.layout import make_layout
 from jpgenc_tpu.native import decode_scan
 from jpgenc_tpu_torch import api, engine, io
-from jpgenc_tpu_torch.api import EOI, jfif_headers
 from jpgenc_tpu_torch.batch import run_batch
 from jpgenc_tpu_torch.cli import main as cli_main
-from jpgenc_tpu_torch.ops import entropy
-from jpgenc_tpu_torch.ops.cuda import block_pack, k1a_fused
+from jpgenc_tpu_torch.config import EncodeConfig
 from jpgenc_tpu_torch.parallel import mesh
 from jpgenc_tpu_torch.utils.fixtures import synth_frame
 from jpgenc_tpu_torch.utils.metrics import psnr
@@ -63,30 +61,13 @@ def _from_reference_coefficients(ref: bytes, quality: int, optimize: bool):
     """The reference file's coefficients through the port's entropy path on
     the CPU, up to a whole file."""
     _, lay, coef = _coefficients(ref)
-    zz = torch.from_numpy(coef[lay.scan_flat].astype(np.int16))[None]
     plan = engine.get_plan(lay.height, lay.width, lay.subsampling, quality,
                            "cpu", lay.restart_interval)
-    if optimize:
-        dcdiff = block_pack.slot_metadata(plan.prev_same, zz)
-        hist = entropy.symbol_histogram(zz, dcdiff, plan.ac_tab, plan.dc_tab,
-                                        plan.valid)
-        per_img, tabs = plan.optimized_tables(hist)
-        hdr = jfif_headers(lay, quality, *per_img[0])
-    else:
-        tabs = plan.standard_tables
-        hdr = jfif_headers(lay, quality)
-    for cap_u, w_blk in engine.tiers_for(lay, quality):
-        if optimize:
-            scan = plan.entropy_scans_zz(zz, dcdiff, tabs, cap_u, w_blk)[0]
-        else:
-            buf, bits = k1a_fused.entropy_plain(
-                zz.reshape(1, lay.n_mcus, -1).to(torch.int32), lay, tabs,
-                w_blk)
-            scan = plan.finalize(plan.merge(buf, bits, cap_u, w_blk),
-                                 cap_u)[0]
-        if scan is not None:
-            return hdr + scan + EOI
-    raise AssertionError("overflow at the worst tier")
+    zz = torch.from_numpy(coef.astype(np.int16))[None].index_select(
+        1, plan.scan_gather)
+    zz[:, lay.n_scan:] = 0
+    return engine.EncodeJob(plan, EncodeConfig(
+        quality=quality, optimize_huffman=optimize), zz=zz).file()
 
 
 def _assert_split(ours: bytes, ref: bytes, quality: int, optimize=False):

@@ -36,9 +36,8 @@ from jpgenc_tpu.layout import make_layout
 from jpgenc_tpu.native import decode_scan
 from jpgenc_tpu.utils.fixtures import synth_frame
 from jpgenc_tpu_torch import api, engine
-from jpgenc_tpu_torch.api import EOI, jfif_headers
-from jpgenc_tpu_torch.ops import entropy
-from jpgenc_tpu_torch.ops.cuda import block_pack, k1a_fused
+from jpgenc_tpu_torch.config import EncodeConfig
+from jpgenc_tpu_torch.ops.cuda import k1a_fused
 from jpgenc_tpu_torch.parallel import mesh
 
 torch.set_num_threads(1)
@@ -91,27 +90,8 @@ def _file_from_reference_coefficients(ref: bytes, quality: int,
     zz = torch.from_numpy(coef[lay.scan_flat].astype(np.int16))[None]
     plan = engine.get_plan(lay.height, lay.width, lay.subsampling, quality,
                            "cpu")
-    if optimize:
-        dcdiff = block_pack.slot_metadata(plan.prev_same, zz)
-        hist = entropy.symbol_histogram(zz, dcdiff, plan.ac_tab, plan.dc_tab,
-                                        plan.valid)
-        per_img, tabs = plan.optimized_tables(hist)
-        hdr = jfif_headers(lay, quality, *per_img[0])
-    else:
-        tabs = (plan.ac_rows, plan.dc_rows, plan.misc)
-        hdr = jfif_headers(lay, quality)
-    for cap_u, w_blk in engine.tiers_for(lay, quality):
-        if optimize:
-            scan = plan.entropy_scans_zz(zz, dcdiff, tabs, cap_u, w_blk)[0]
-        else:
-            buf, bits = k1a_fused.entropy_plain(
-                zz.reshape(1, lay.n_mcus, -1).to(torch.int32), lay, tabs,
-                w_blk)
-            scan = plan.finalize(plan.merge(buf, bits, cap_u, w_blk),
-                                 cap_u)[0]
-        if scan is not None:
-            return hdr + scan + EOI
-    raise AssertionError("overflow at the worst tier")
+    return engine.EncodeJob(plan, EncodeConfig(
+        quality=quality, optimize_huffman=optimize), zz=zz).file()
 
 
 def _check_file(img, quality, sub="420", optimize=False):
@@ -162,11 +142,12 @@ def test_noise_climbs_the_ladder_bytes_equal_reference(sub, tier):
     noise = np.random.default_rng(1234).integers(0, 256, (64, 64, 3),
                                                  dtype=np.uint8)
     plan = engine.get_plan(64, 64, sub, 78, "cpu")
-    x = torch.from_numpy(noise)[None]
-    tiers = engine.tiers_for(plan.layout, 78)
-    for cap_u, w_blk in tiers[:tier]:
-        assert plan.encode_scans(x, cap_u, w_blk) == [None]
-    assert plan.encode_scans(x, *tiers[tier]) != [None]
+    job = engine.EncodeJob(plan, EncodeConfig(quality=78, subsampling=sub),
+                           torch.from_numpy(noise)[None])
+    job.tables()
+    for cap_u, w_blk in job.tiers[:tier]:
+        assert job.recode(0, cap_u, w_blk) is None
+    assert job.recode(0, *job.tiers[tier]) is not None
     _check_file(noise, 78, sub)
 
 
@@ -176,12 +157,52 @@ def test_optimize_noise_climbs_the_ladder():
     noise = np.random.default_rng(1234).integers(0, 256, (64, 64, 3),
                                                  dtype=np.uint8)
     plan = engine.get_plan(64, 64, "444", 78, "cpu")
-    zz, dcdiff, hist = plan.zz_and_histogram(
-        torch.from_numpy(noise)[None])
-    _, tabs = plan.optimized_tables(hist)
-    tiers = engine.tiers_for(plan.layout, 78)
-    assert plan.entropy_scans_zz(zz, dcdiff, tabs, *tiers[0]) == [None]
+    job = engine.EncodeJob(plan, EncodeConfig(quality=78, subsampling="444",
+                                              optimize_huffman=True),
+                           torch.from_numpy(noise)[None])
+    job.first_pass()
+    job.tables()
+    assert job.recode(0, *job.tiers[0]) is None
     _check_file(noise, 78, "444", optimize=True)
+
+
+@pytest.mark.parametrize("sub,optimize", [("420", False), ("444", True)])
+def test_api_and_batch_ladders_on_noise(sub, optimize, monkeypatch):
+    """The two ladders over the one row re-code, on a noise frame that
+    overflows the tight tier: api.encode codes it at tight, then alone at
+    safe, and stops there or at worst; encode_batch codes the batch at
+    tight, then the noise row alone at worst. Both files are the same
+    bytes."""
+    noise = np.random.default_rng(1234).integers(0, 256, (64, 64, 3),
+                                                 dtype=np.uint8)
+    smooth = synth_frame(64, 64, seed=5)
+    tiers = engine.tiers_for(engine.get_plan(64, 64, sub, 78, "cpu").layout,
+                             78)
+    assert len(tiers) == 3
+    coded, recoded = [], []
+    real_merge, real_recode = engine.EncodePlan.merge, engine.EncodeJob.recode
+
+    def merge(self, buf, bits, cap_u, w_blk):
+        coded.append(((cap_u, w_blk), int(bits.shape[0])))
+        return real_merge(self, buf, bits, cap_u, w_blk)
+
+    def recode(self, j, cap_u, w_blk):
+        recoded.append((j, (cap_u, w_blk)))
+        return real_recode(self, j, cap_u, w_blk)
+
+    monkeypatch.setattr(engine.EncodePlan, "merge", merge)
+    monkeypatch.setattr(engine.EncodeJob, "recode", recode)
+    kw = dict(quality=78, subsampling=sub, optimize=optimize, device="cpu")
+    one = api.encode(noise, **kw)
+    assert coded in ([(tiers[0], 1), (tiers[1], 1)],
+                     [(tiers[0], 1), (tiers[1], 1), (tiers[2], 1)])
+    assert recoded == [(0, t) for t, _ in coded[1:]]
+    coded.clear()
+    recoded.clear()
+    files = mesh.encode_batch(np.stack([smooth, noise]), **kw)
+    assert coded == [(tiers[0], 2), (tiers[-1], 1)]
+    assert recoded == [(1, tiers[-1])]
+    assert files[1] == one
 
 
 def _batch():

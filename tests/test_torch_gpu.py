@@ -564,13 +564,13 @@ def test_encode_batch_optimize_at_4k_on_cuda(cuda, monkeypatch):
                             bench_frames.generator(2**31 + 4, cuda), cuda,
                             amps)
     retried = []
-    real_retry = mesh._Entry.retry
+    real_recode = engine.EncodeJob.recode
 
-    def retry(self, j, *args, **kwargs):
+    def recode(self, j, *args, **kwargs):
         retried.append(j)
-        return real_retry(self, j, *args, **kwargs)
+        return real_recode(self, j, *args, **kwargs)
 
-    monkeypatch.setattr(mesh._Entry, "retry", retry)
+    monkeypatch.setattr(engine.EncodeJob, "recode", recode)
     mods = (k1a_fused, seg_merge, k1_dct, block_pack)
     plain = [m.plain_calls for m in mods]
     a0, k0 = block_pack.launches, k1_dct.launches
@@ -1162,7 +1162,7 @@ def test_encode_batch_restart_interval_on_cuda(cuda):
 def test_islow_on_cuda_equals_cpu_and_reference(cuda, mode, dri, optimize):
     """The integer pipeline is exact, so the card's file equals the CPU's
     and the numpy reference's (ref.islow + ref.encoder) byte for byte."""
-    from jpgenc_tpu_torch.api import EOI, jfif_headers
+    from jpgenc_tpu_torch.engine import EOI, jfif_headers
     from jpgenc_tpu_torch.ref import islow as ref_islow
     img = _frame(61, 130, mode)
     sub = "420" if mode == "gray" else mode

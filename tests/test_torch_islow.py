@@ -142,7 +142,7 @@ def test_plan_zz_islow_is_scan_ordered_int16():
         x[1].numpy(), lay, list(engine.qtables_for_quality(75)))
     np.testing.assert_array_equal(zz[1, :lay.n_scan].numpy(),
                                   raster[lay.scan_flat])
-    zz2, dc2, hist = plan.zz_islow_and_histogram(x)
+    zz2, dc2, hist = plan.zz_and_histogram(x, islow=True)
     assert torch.equal(zz2, zz) and torch.equal(dc2, dcdiff)
     np.testing.assert_array_equal(hist[1].numpy(),
                                   ref_encoder.symbol_histogram(lay, raster))

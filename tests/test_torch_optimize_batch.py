@@ -14,7 +14,7 @@ from pathlib import Path
 
 import pytest
 
-from jpgenc_tpu_torch import api
+from jpgenc_tpu_torch import api, engine
 from jpgenc_tpu_torch.parallel import mesh
 from portbench import frames, judge
 
@@ -37,13 +37,13 @@ def test_optimize_batch_holds_the_benchmark_reference(seed, monkeypatch):
               restart_interval=CONFIG["restart_interval"],
               optimize=CONFIG["optimize"], dct_method=CONFIG["dct_method"])
     retried = []
-    real_retry = mesh._Entry.retry
+    real_recode = engine.EncodeJob.recode
 
-    def retry(self, j, *args, **kwargs):
+    def recode(self, j, *args, **kwargs):
         retried.append(j)
-        return real_retry(self, j, *args, **kwargs)
+        return real_recode(self, j, *args, **kwargs)
 
-    monkeypatch.setattr(mesh._Entry, "retry", retry)
+    monkeypatch.setattr(engine.EncodeJob, "recode", recode)
     files = mesh.encode_batch(x, device="cpu", **kw)
     assert 0 < len(retried) < len(files)
     readings = judge.judge_encode(

@@ -35,9 +35,9 @@ from jpgenc_tpu.ops.pallas.k1a_fused import fused_pixels_to_pack as jax_k1a
 from jpgenc_tpu.ref.encoder import standard_tables
 from jpgenc_tpu.utils.fixtures import synth_frame
 from jpgenc_tpu_torch import api, engine
-from jpgenc_tpu_torch.api import EOI, jfif_headers
+from jpgenc_tpu_torch.config import EncodeConfig
 from jpgenc_tpu_torch.ops import pack as tpack
-from jpgenc_tpu_torch.ops.cuda import block_pack, k1_dct, k1a_fused
+from jpgenc_tpu_torch.ops.cuda import k1_dct, k1a_fused
 from jpgenc_tpu_torch.parallel import mesh
 
 torch.set_num_threads(1)
@@ -189,17 +189,8 @@ def _file_from_reference_coefficients(ref, quality, optimize):
     zz = torch.from_numpy(coef.astype(np.int16))[None].index_select(
         1, plan.scan_gather)
     zz[:, lay.n_scan:] = 0
-    dcdiff = block_pack.slot_metadata(plan.prev_same, zz)
-    if optimize:
-        per_img, tabs = plan.optimized_tables(plan.histogram(zz, dcdiff))
-        hdr = jfif_headers(lay, quality, *per_img[0])
-    else:
-        tabs, hdr = plan.standard_tables, jfif_headers(lay, quality)
-    for cap_u, w_blk in engine.tiers_for(lay, quality):
-        scan = plan.entropy_scans_zz(zz, dcdiff, tabs, cap_u, w_blk)[0]
-        if scan is not None:
-            return hdr + scan + EOI
-    raise AssertionError("overflow at the worst tier")
+    return engine.EncodeJob(plan, EncodeConfig(
+        quality=quality, optimize_huffman=optimize), zz=zz).file()
 
 
 def _rst_markers(scan):
@@ -258,9 +249,11 @@ def test_worst_tier_with_restart_interval():
     noise = np.random.default_rng(77).integers(0, 256, (32, 48, 3),
                                                dtype=np.uint8)
     plan = engine.get_plan(32, 48, "444", 100, "cpu", 1)
-    tiers = engine.tiers_for(plan.layout, 100)
-    x = torch.from_numpy(noise)[None]
-    assert plan.encode_scans(x, *tiers[0]) == [None]
+    job = engine.EncodeJob(plan, EncodeConfig(quality=100, subsampling="444",
+                                              restart_interval=1),
+                           torch.from_numpy(noise)[None])
+    job.tables()
+    assert job.recode(0, *job.tiers[0]) is None
     ref = japi.encode(noise, 100, "444", restart_interval=1)
     ours = api.encode(noise, 100, "444", restart_interval=1, device="cpu")
     if _knife_edge(_coefficients(ours)[2], _coefficients(ref)[2]) == 0:

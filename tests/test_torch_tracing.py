@@ -20,7 +20,7 @@ import torch._C._profiler
 from torch.profiler import ProfilerActivity, profile
 
 from jpgenc_tpu_torch import api, engine
-from jpgenc_tpu_torch.ops.pack import w_blk_for_quality
+from jpgenc_tpu_torch.config import EncodeConfig
 from jpgenc_tpu_torch.parallel import mesh
 from jpgenc_tpu_torch.utils import profiling
 from jpgenc_tpu_torch.utils.fixtures import synth_frame
@@ -53,10 +53,12 @@ def _tight_overflows(imgs: np.ndarray, quality: int = 75,
     """The images of one tight-tier call that come back None."""
     plan = engine.get_plan(imgs.shape[1], imgs.shape[2], subsampling,
                            quality, "cpu")
-    tight = engine.scan_caps(plan.layout, quality, "tight")[0]
-    scans = plan.encode_scans(torch.from_numpy(imgs), tight,
-                              w_blk_for_quality(quality))
-    return sum(s is None for s in scans)
+    job = engine.EncodeJob(plan, EncodeConfig(quality=quality,
+                                              subsampling=subsampling),
+                           torch.from_numpy(imgs))
+    job.first_pass()
+    job.second_pass()
+    return sum(s is None for s in job.finish())
 
 
 def test_no_profiler_enters_no_range(monkeypatch):
