@@ -169,19 +169,24 @@ def tables_from_reference(qt_host, luts_dc, luts_ac, separable=None) -> dict:
 
 def scan_caps(layout, quality: int, tier: str = "safe") -> tuple[int, int]:
     """(cap_u, cap_s) byte capacities of the compact stream for a tier
-    (engine.py:686-718): "tight" covers typical photographic content,
-    "safe" noise-like content, "worst" can never overflow (paired with
-    w_blk=56, which covers MAX_BLOCK_BITS)."""
+    (engine.py:686-718). "tight" and "safe" share one capacity, 2 / 4 / 7
+    bits a plane sample at Q <= 80 / <= 92 / above (about 3 bpp at 4:2:0
+    Q75), which holds photographic and most noise-like content; "worst" can
+    never overflow (paired with w_blk=56, which covers MAX_BLOCK_BITS).
+
+    The reference sizes its tight tier at a quarter of that, because a TPU
+    buffer's shape is compiled in and fetched whole. Here a larger stream
+    capacity costs device memory only: the merge tail's stream is a
+    torch.empty whose words past an image's prefix are never written, and
+    the fetch copies prefix_guess words, not cap_u. So tight and safe
+    differ only in w_blk (tiers_for), and photographs fit tier 0."""
     wal = pack.walign_for(layout.blocks_per_segment)
     worst = sum(c.n_blocks for c in layout.comps) * pack.MAX_BLOCK_BITS // 8 \
         + 4 * wal * layout.n_segments + 8
     if tier == "worst":
         return worst, 2 * worst + 16
     px = sum(c.plane_h * c.plane_w for c in layout.comps)
-    if tier == "tight":
-        bpp = 0.5 if quality <= 80 else (1.0 if quality <= 92 else 2.0)
-    else:
-        bpp = 2.0 if quality <= 80 else (4.0 if quality <= 92 else 7.0)
+    bpp = 2.0 if quality <= 80 else (4.0 if quality <= 92 else 7.0)
     cap_u = min(int(px * bpp / 8) + 1024 + 4 * wal * layout.n_segments,
                 worst)
     cap_u = -(-cap_u // 1024) * 1024
@@ -192,10 +197,12 @@ def scan_caps(layout, quality: int, tier: str = "safe") -> tuple[int, int]:
 def tiers_for(layout, quality: int) -> list[tuple[int, int]]:
     """The capacity ladder (api.py:51-55): (cap_u, w_blk) tight -> safe with
     max(w, 24) -> worst with 56, duplicates dropped, so tiers[0] is always
-    (tight, w_blk_for_quality) and tiers[-1] always (worst, 56)."""
+    (tight, w_blk_for_quality) and tiers[-1] always (worst, 56). Tight and
+    safe share scan_caps' one stream capacity, so tiers[0] and tiers[1]
+    differ only in w_blk, and merge where w_blk_for_quality is 24 already."""
     w_q = pack.w_blk_for_quality(quality)
-    tiers = [(scan_caps(layout, quality, "tight")[0], w_q),
-             (scan_caps(layout, quality, "safe")[0], max(w_q, 24)),
+    cap = scan_caps(layout, quality, "tight")[0]
+    tiers = [(cap, w_q), (cap, max(w_q, 24)),
              (scan_caps(layout, quality, "worst")[0], 56)]
     return [t for i, t in enumerate(tiers) if t not in tiers[:i]]
 

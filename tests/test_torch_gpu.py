@@ -7,6 +7,9 @@ it, so run this file there without the conftest:
 
 This file imports no JAX and no conftest fixture.
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -553,16 +556,17 @@ def test_encode_batch_optimize_on_cuda(cuda, gray):
 
 
 def test_encode_batch_optimize_at_4k_on_cuda(cuda, monkeypatch):
-    """The benchmark's two-pass batch at its size: two 3840 x 2160
-    photographic frames on the card, the busier one over the tight tier and
-    retried with its own tables. One K1 rows launch, one kernel A launch
-    for the batch and one a retry, no plain version; the files are
-    api.encode's."""
+    """The benchmark's two-pass batch at its size: a 3840 x 2160
+    photographic frame and a uniform-noise frame on the card, the noise over
+    the tight tier (its blocks over w_blk) and retried with its own tables.
+    One K1 rows launch, one kernel A launch for the batch and one a retry,
+    no plain version; the files are api.encode's."""
     from portbench import frames as bench_frames
-    amps = [1.98, 17.83]     # the photographic content's first and last level
-    x = bench_frames.frames(2, 2160, 3840, 3,
-                            bench_frames.generator(2**31 + 4, cuda), cuda,
-                            amps)
+    gen = bench_frames.generator(2**31 + 4, cuda)
+    photo = bench_frames.frames(1, 2160, 3840, 3, gen, cuda, [1.98])
+    noise = torch.randint(0, 256, (1, 2160, 3840, 3), generator=gen,
+                          dtype=torch.uint8, device=cuda)
+    x = torch.cat([photo, noise])
     retried = []
     real_recode = engine.EncodeJob.recode
 
@@ -580,6 +584,35 @@ def test_encode_batch_optimize_at_4k_on_cuda(cuda, monkeypatch):
     assert [m.plain_calls for m in mods] == plain
     assert out == [api.encode(f, 75, optimize=True, device="cuda")
                    for f in x]
+
+
+def test_photographs_fit_the_tight_tier_on_cuda(cuda, monkeypatch):
+    """The benchmark cells' content at their geometry, at the first and the
+    last detail level: two 1080p frames with the standard tables and two
+    4K frames with optimize, each batch coded at the tight tier with no
+    row re-coded; the files are api.encode's."""
+    from portbench import frames as bench_frames
+    root = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+    recoded = []
+    real_recode = engine.EncodeJob.recode
+
+    def recode(self, j, *args, **kwargs):
+        recoded.append(j)
+        return real_recode(self, j, *args, **kwargs)
+
+    monkeypatch.setattr(engine.EncodeJob, "recode", recode)
+    for name in ("rgb1080p_420_q75", "rgb4k_420_q75_optimized_batch"):
+        cfg = json.loads((root / f"{name}.json").read_text())
+        amps = cfg["content"]["amplitude"]
+        x = bench_frames.frames(2, cfg["height"], cfg["width"],
+                                cfg["channels"],
+                                bench_frames.generator(2**31 + 21, cuda),
+                                cuda, [amps[0], amps[-1]])
+        kw = dict(quality=cfg["quality"], subsampling=cfg["subsampling"],
+                  optimize=cfg["optimize"], device="cuda")
+        out = mesh.encode_batch(x, **kw)
+        assert recoded == [], name
+        assert out == [api.encode(f, **kw) for f in x], name
 
 
 # --- the decoder: the reconstruction kernels and the decode paths ----------

@@ -9,7 +9,9 @@ before its block products. Each copy is pinned here against the original on
 the same inputs: this file is where the two packages meet.
 """
 import dataclasses
+import json
 import os
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from jpgenc_tpu_torch.ops import pack as tpack
 LAYOUTS = [(1080, 1920, "420", 0), (120, 136, "420", 0), (64, 126, "422", 0),
            (48, 62, "444", 0), (120, 120, "420", 3), (100, 64, "gray", 3),
            (2160, 3840, "422", 8)]
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def test_kdct_zz_and_rounding():
@@ -183,23 +186,42 @@ def test_pack_constants_and_alignment():
 
 @pytest.mark.parametrize("h,w,sub,dri", LAYOUTS)
 def test_scan_caps_over_layouts_and_tiers(h, w, sub, dri):
+    """safe and worst are the reference's; the port's tight tier takes the
+    safe tier's stream capacity on purpose (a larger capacity costs it
+    device memory only), where the reference's is a quarter of it."""
     lay = make_layout(h, w, sub, dri)
-    for tier in ("tight", "safe", "worst"):
-        for q in (10, 75, 85, 92, 93, 100):
+    for q in (10, 75, 85, 92, 93, 100):
+        for tier in ("safe", "worst"):
             assert teng.scan_caps(lay, q, tier) == jeng.scan_caps(lay, q, tier)
+        assert teng.scan_caps(lay, q, "tight") == jeng.scan_caps(lay, q, "safe")
 
 
 def test_tiers_follow_the_reference_ladder():
-    """api.py:51-55: tight -> safe with max(w, 24) -> worst with 56,
-    duplicates dropped."""
+    """api.py:51-55's shape: tight -> safe with max(w, 24) -> worst with
+    56, duplicates dropped, with tight at the safe tier's capacity: at Q100
+    w is 24 already, so tight and safe merge."""
     lay = make_layout(120, 136, "420", 0)
     for q in (50, 75, 90, 95, 100):
         w = jpack.w_blk_for_quality(q)
-        ref = [(jeng.scan_caps(lay, q, "tight")[0], w),
-               (jeng.scan_caps(lay, q, "safe")[0], max(w, 24)),
+        safe = jeng.scan_caps(lay, q, "safe")[0]
+        ref = [(safe, w), (safe, max(w, 24)),
                (jeng.scan_caps(lay, q, "worst")[0], 56)]
         ref = [t for i, t in enumerate(ref) if t not in ref[:i]]
         assert teng.tiers_for(lay, q) == ref
+        assert len(ref) == (2 if q == 100 else 3)
+
+
+@pytest.mark.parametrize("h,w", [(1080, 1920), (2160, 3840)])
+def test_tier0_holds_the_benchmark_content(h, w):
+    """Tier 0's stream capacity holds the benchmark's photographic content
+    at its top level with half again to spare, at 1080p and at 4K, so
+    that a photograph is coded once (portbench/configs: content.bpp)."""
+    cfg = json.loads((ROOT / "portbench" / "configs" /
+                      "rgb1080p_420_q75.json").read_text())
+    lay = make_layout(h, w, cfg["subsampling"], 0)
+    cap_u, w_blk = teng.tiers_for(lay, cfg["quality"])[0]
+    assert w_blk == jpack.w_blk_for_quality(cfg["quality"])
+    assert cap_u >= 1.5 * max(cfg["content"]["bpp"]) * h * w / 8
 
 
 def test_pad_replicate_equals_reference():

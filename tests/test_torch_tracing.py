@@ -29,10 +29,11 @@ H, W = 48, 64
 
 
 def _frames(seed: int = 200) -> np.ndarray:
-    """Smooth frames and noise frames, alternating: the noise overflows
-    the tight tier at Q75, the smooth frames do not."""
-    noise = np.random.default_rng(seed).integers(0, 256, size=(2, H, W, 3),
-                                                 dtype=np.uint8)
+    """Smooth frames and noise frames, alternating: the noise (each sample
+    0 or 255) overflows the tight tier at Q75 and at Q90, the smooth frames
+    do not."""
+    noise = np.random.default_rng(seed).integers(0, 2, size=(2, H, W, 3),
+                                                 dtype=np.uint8) * 255
     return np.stack([synth_frame(H, W, seed=seed + 1), noise[0],
                      synth_frame(H, W, seed=seed + 2), noise[1]])
 
