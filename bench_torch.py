@@ -265,8 +265,8 @@ class Bench:
             with st.stage("tables"):
                 tabs = plan.optimized_tables(hist)[1]
             with st.stage("pass2"):
-                plan.finalize(
-                    plan.entropy_from_zz(zz, dcdiff, tabs, cap, w_blk), cap)
+                plan.finalize(plan.fetch(
+                    plan.entropy_from_zz(zz, dcdiff, tabs, cap, w_blk), cap))
         out = {f"{k}_ms": 1e3 * v for k, v in st.records.items()}
         p1 = self.events_ms(lambda: plan.zz_and_histogram(x))
         p2 = self.events_ms(

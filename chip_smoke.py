@@ -435,7 +435,7 @@ def main() -> None:
 
     # worst-tier retry: a uniform-noise frame overflows the tight tier
     tight = plan.fetch(plan(x2, cap_w * 4, 8), cap_w * 4)
-    if not tight[0][2] or tight[1][2]:
+    if tight[0][2] is not None or tight[1][2] is None:
         fail("expected the tight tier to fit frame 0 and overflow the noise")
     pair = mesh.encode_batch(x2, quality=Q, device="cuda")
     _, _, zzn = k1a_fused.fused_pixels_to_pack(x2[1:], *ops, tabs, 56,
@@ -589,7 +589,8 @@ def main() -> None:
         _, tb = pl.optimized_tables(hist)
         t2 = time.perf_counter()
         cap = engine.scan_caps(pl.layout, Q, "tight")[0]
-        scans = pl.finalize(pl.entropy_from_zz(zz, dcdiff, tb, cap, 8), cap)
+        scans = pl.finalize(
+            pl.fetch(pl.entropy_from_zz(zz, dcdiff, tb, cap, 8), cap))
         t3 = time.perf_counter()
         if any(s is None for s in scans):
             fail("a frame overflowed the tight tier in the timed split")
@@ -1242,8 +1243,8 @@ def main() -> None:
     # compaction -> the same fetch and finalize; files byte for byte
     dcap = engine.scan_caps(dlay, Q, "tight")[0]
     n_dseg = dlay.n_segments
-    plain_scans = dplan.finalize(seg_merge.merge_plain(
-        pbuf, pbits, n_dseg, 8, dcap // 4, dplan.walign), dcap)
+    plain_scans = dplan.finalize(dplan.fetch(seg_merge.merge_plain(
+        pbuf, pbits, n_dseg, 8, dcap // 4, dplan.walign), dcap))
     if dri_plain_equal:
         for i, scan in enumerate(plain_scans):
             if scan is None or dri_files[i] != (
@@ -1351,8 +1352,9 @@ def main() -> None:
                                                      np.uint8)
     npl = engine.get_plan(32, 48, "444", 100, "cuda", 1)
     safe = engine.tiers_for(npl.layout, 100)[-2]
-    if npl.finalize(npl(torch.from_numpy(noise_small)[None].to(dev), *safe),
-                    safe[0]) != [None]:
+    if npl.finalize(npl.fetch(
+            npl(torch.from_numpy(noise_small)[None].to(dev), *safe),
+            safe[0])) != [None]:
         fail("the small noise frame did not overflow the safe tier")
     small_case(noise_small, "444", 100, "32x48 noise Q100 DRI 1 worst tier",
                restart_interval=1)

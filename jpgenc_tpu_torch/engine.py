@@ -456,10 +456,11 @@ class EncodePlan(nn.Module):
         """One host copy of (stream prefix, nbits, ovf) for every image
         (started: start_fetch's result, else it starts here), refetching
         the prefix only when the adaptive guess fell short; both copies go
-        through to_host_async. Returns [(u_words, nbits, ok)] per image; ok
-        is False when the image overflowed its block tier or the stream
-        capacity. The waits are the spans `jpgenc.fetch_wait` and
-        `jpgenc.refetch_wait`."""
+        through to_host_async. Returns [(u_words, nbits, cause)] per image;
+        cause is None where the image fits this tier, else why it does not:
+        "block" where the merge tail flagged a block past w_blk, else
+        "stream" where its aligned words pass cap_u. The waits are the spans
+        `jpgenc.fetch_wait` and `jpgenc.refetch_wait`."""
         wstream, nbits, ovf = outs
         handle, k = started or self.start_fetch(outs)
         with span("jpgenc.fetch_wait"):
@@ -467,19 +468,21 @@ class EncodePlan(nn.Module):
         up, nb, ov = split_fetch(arr, k, nbits.shape[-1])
         need = pack.seg_nwords_aligned(nb.astype(np.int64),
                                        self.walign).sum(axis=-1)
-        ok = ~ov & (need <= cap_u // 4)
+        past_cap = need > cap_u // 4
+        ok = ~ov & ~past_cap
         t = int(need[ok].max()) if ok.any() else 0
         if t > k:
             with span("jpgenc.refetch_wait"):
                 up = to_host_async(wstream[:, :t]).wait()
         with self._guess_lock:
             self.prefix_guess = max(t, 1024)
-        return [(up[i], nb[i], bool(ok[i])) for i in range(len(nb))]
+        return [(up[i], nb[i], "block" if ov[i] else
+                 "stream" if past_cap[i] else None) for i in range(len(nb))]
 
-    def finalize(self, outs, cap_u: int, rst=None, started=None,
-                 heads=None, tail: bytes = b"") -> list[bytes | None]:
-        """fetch + host finalize: the entropy-coded scan (stuffed, no
-        markers) per image; None for an image that overflowed this tier.
+    def finalize(self, fetched, rst=None, heads=None,
+                 tail: bytes = b"") -> list[bytes | None]:
+        """The host finalize of fetch's rows: the entropy-coded scan
+        (stuffed, no markers) per image; None for an image that overflowed.
         heads (one bytes a image) and tail frame each scan in the same
         bytes object: with the file's headers and EOI, a whole file.
 
@@ -488,17 +491,16 @@ class EncodePlan(nn.Module):
         (a ragged tail drops its padding-row segments; the stream is
         segment-ordered, so a prefix is exact), and write RSTn after the
         first n_rst of them, numbered from first_rst. The default is a
-        whole image: (0, n_segments - 1, n_segments). The host finalize,
-        the fetch excluded, is the span `jpgenc.finalize_host`."""
-        fetched = self.fetch(outs, cap_u, started)
+        whole image: (0, n_segments - 1, n_segments). It is the span
+        `jpgenc.finalize_host`."""
         out = []
         with span("jpgenc.finalize_host"):
-            for i, (up, nb, ok) in enumerate(fetched):
+            for i, (up, nb, cause) in enumerate(fetched):
                 first, n_rst, keep = (0, len(nb) - 1, len(nb)) \
                     if rst is None else rst[i]
-                out.append(finalize_host_w(
+                out.append(None if cause else finalize_host_w(
                     up, nb[:keep], first, n_rst, self.walign,
-                    b"" if heads is None else heads[i], tail) if ok else None)
+                    b"" if heads is None else heads[i], tail))
         return out
 
 
@@ -560,7 +562,7 @@ class EncodeJob:
       second_pass()  tables(), then, from cached coefficients, kernel A +
                      merge tail at tiers[0] with its fetch started
       finish()       fetch + host finalize at tiers[0]: one file a row,
-                     None where a row overflowed
+                     None where a row overflowed, and in causes why
       climb(j, ladder)  row j alone again, up the caller's ladder
 
     A caller with several jobs runs each step over all of them before the
@@ -580,7 +582,7 @@ class EncodeJob:
         self.n = len(x if x is not None else zz)
         self.tiers = tiers_for(plan.layout, cfg.quality)
         self.dcdiff = self.hist = self.tabs = self.heads = None
-        self.outs = self.started = None
+        self.outs = self.started = self.causes = None
 
     def first_pass(self) -> None:
         """Enqueue pass 1; nothing here waits for the device."""
@@ -623,16 +625,17 @@ class EncodeJob:
                 self.zz, self.dcdiff, self.tabs, *self.tiers[0])
             self.started = self.plan.start_fetch(self.outs)
 
-    def _finalize(self, outs, cap_u: int, rows: slice, started=None):
+    def _finalize(self, fetched, rows: slice):
         if self.rst is not None:
-            return self.plan.finalize(outs, cap_u, self.rst[rows], started)
-        return self.plan.finalize(outs, cap_u, started=started,
-                                  heads=self.heads[rows], tail=EOI)
+            return self.plan.finalize(fetched, self.rst[rows])
+        return self.plan.finalize(fetched, heads=self.heads[rows], tail=EOI)
 
     def finish(self) -> list[bytes | None]:
-        """Fetch and finalize the rows coded at tiers[0]."""
-        return self._finalize(self.outs, self.tiers[0][0], slice(None),
-                              self.started)
+        """Fetch and finalize the rows coded at tiers[0]; causes keeps, per
+        row, why it overflowed them (EncodePlan.fetch), None where it fit."""
+        fetched = self.plan.fetch(self.outs, self.tiers[0][0], self.started)
+        self.causes = [cause for _, _, cause in fetched]
+        return self._finalize(fetched, slice(None))
 
     def recode(self, j: int, cap_u: int, w_blk: int) -> bytes | None:
         """Row j alone at (cap_u, w_blk): from the cached coefficients with
@@ -646,7 +649,7 @@ class EncodeJob:
                                         cap_u, w_blk)
         else:
             outs = plan(self.x[r], cap_u, w_blk)
-        return self._finalize(outs, cap_u, r)[0]
+        return self._finalize(plan.fetch(outs, cap_u), r)[0]
 
     def climb(self, j: int, ladder) -> bytes:
         """Row j recoded at each tier of `ladder` until one holds it."""

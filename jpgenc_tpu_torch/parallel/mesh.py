@@ -216,8 +216,10 @@ def _batch_parts(imgs, staged, devs) -> tuple[int, list[tuple]]:
 
 def _retry(job, j: int) -> bytes:
     """Row j of a job alone at the worst tier (w_blk 56, which cannot
-    overflow): the span `jpgenc.retry`."""
-    with span("jpgenc.retry"):
+    overflow): the span `jpgenc.retry`, and inside it one span of why the
+    row overflowed tiers[0] (job.causes): `jpgenc.retry.block` or
+    `jpgenc.retry.stream`."""
+    with span("jpgenc.retry"), span("jpgenc.retry." + job.causes[j]):
         return job.climb(j, job.tiers[-1:])
 
 

@@ -181,7 +181,7 @@ def test_fetch_counts_the_bytes_it_copies():
             plan.prefix_guess = guess
         engine.fetched_bytes = 0
         res = plan.fetch(outs, cap)
-        assert all(ok for _, _, ok in res)
+        assert all(cause is None for _, _, cause in res)
         k = min(guess, wstream.shape[-1])
         want = 4 * 2 * (k + nbits.shape[-1] + 1)
         if refetch:

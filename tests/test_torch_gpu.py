@@ -1258,3 +1258,40 @@ def test_device_lists_on_cuda(cuda, kw):
                                         device="cuda"))
     assert mesh.encode_batch(pix, devices=["cuda", "cuda"], device="cuda") \
         == mesh.encode_batch(torch.cat(pix), device="cuda")
+
+
+def test_gray512_batch_on_cuda_holds_the_benchmark_reference(cuda,
+                                                            monkeypatch):
+    """The cell `gray512_q75.batch512_device` at its size: 512 gray
+    512 x 512 photographic frames (`portbench/frames.py`, the configuration's
+    eight levels) through encode_batch on the card, one gray K1A launch at
+    B = 512 and one a retried row, each retry with its cause; 16 of its
+    files, two of each level, judged by the benchmark's reference under the
+    cell's limits."""
+    from portbench import frames, judge
+    root = Path(__file__).resolve().parent.parent / "portbench"
+    cfg = json.loads((root / "configs" / "gray512_q75.json").read_text())
+    limits = json.loads((root / "limits" /
+                         "gray512_q75.batch512_device.json").read_text())
+    amps = frames.levels(cfg, 1, 512, 2**31 + 50)[0]
+    x = frames.frames(512, cfg["height"], cfg["width"], cfg["channels"],
+                      frames.generator(2**31 + 50, "cuda"), "cuda", amps)
+    causes = []
+    real = mesh._retry
+
+    def retry(job, j):
+        causes.append(job.causes[j])
+        return real(job, j)
+
+    monkeypatch.setattr(mesh, "_retry", retry)
+    gray0 = k1a_fused.launches_gray
+    files = mesh.encode_batch(x, quality=cfg["quality"], device="cuda")
+    assert len(files) == 512
+    assert k1a_fused.launches_gray - gray0 == 1 + len(causes)
+    assert set(causes) <= {"block", "stream"}
+    picks = [i for level in cfg["content"]["amplitude"]
+             for i in [k for k, a in enumerate(amps) if a == level][:2]]
+    readings = judge.judge_encode([(x[i].cpu().numpy(), files[i])
+                                   for i in picks], cfg)
+    checks = judge.held(readings, limits)
+    assert set(checks) == set(limits) and judge.passes(checks), readings
