@@ -400,9 +400,16 @@ def main() -> None:
     def bpp(files):
         return round(float(np.mean([8 * len(f) / (H * W) for f in files])), 4)
 
+    fin0 = native.finalize_calls, native.finalize_workers
     files, launches, plain, first_s, walls = drive(
         x16, ("k1a_fused", "seg_merge"), 3)
     main_launches, walls_fused = dict(launches), walls
+    # each call's 16 files in one native finalize, on about one C++ worker
+    # a MiB of scan (the fixture's 16 frames: about 1 MB)
+    finalize = {"calls": native.finalize_calls - fin0[0],
+                "workers": native.finalize_workers - fin0[1]}
+    if finalize["calls"] != 4:
+        fail(f"expected one batch finalize a call of 4: {finalize}")
 
     _, _, zz16 = k1a_fused.fused_pixels_to_pack(x16, *ops, tabs, 8,
                                                 return_zz=True)
@@ -446,7 +453,7 @@ def main() -> None:
     if not np.array_equal(decode(pair[1])[1], raster(zzn_np)):
         fail("noise frame (worst tier) decoded != kernel zz")
     emit({"phase": "encode_batch", "frames": len(files),
-          "launches": launches, "plain_calls": plain,
+          "launches": launches, "plain_calls": plain, "finalize": finalize,
           "first_call_s": round(first_s, 4), **rates(walls, len(files)),
           "profile": busy(x16),
           "bpp": same_bpp("fused", bpp(files)),

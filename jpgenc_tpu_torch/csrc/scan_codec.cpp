@@ -10,10 +10,14 @@
 //
 // Error codes: 0 ok; <0 = malformed stream.
 
+#include <atomic>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
+#include <unistd.h>
 #ifdef __SSE2__
 #include <emmintrin.h>
 #endif
@@ -226,10 +230,11 @@ static int64_t decode_segment_range(
 }
 
 // Thread count for a segment-parallel decode: capped by the hardware, the
-// segment count, and the useful work. Spawn+join costs ~1 ms/thread on
-// this class of host while serial decode runs ~60-70 MB/s, so threads only
-// pay off with >= ~512 KB of scan bytes each (measured: auto-threading a
-// 70 KB 1080p Q75 scan was a 4x LOSS; a 1.9 MB noisy scan a 2.2x win).
+// segment count, and the useful work. Spawn+join of 1-8 threads costs
+// 100-220 us a thread on the H100 machine's 8-core host while serial decode
+// runs ~60-70 MB/s, so threads only pay off with >= ~512 KB of scan bytes
+// each (measured: auto-threading a 70 KB 1080p Q75 scan was a 4x LOSS; a
+// 1.9 MB noisy scan a 2.2x win).
 static int pick_threads(int n_threads, int n_segments, int64_t data_len) {
     if (n_threads <= 0) {
         unsigned hc = std::thread::hardware_concurrency();
@@ -243,23 +248,152 @@ static int pick_threads(int n_threads, int n_segments, int64_t data_len) {
     return n_threads < 1 ? 1 : n_threads;
 }
 
-// Byte-balanced partition of segments into `nt` contiguous ranges:
-// bounds[t]..bounds[t+1]. Segment sizes vary with content, so an equal-COUNT
-// split can leave one thread with most of the bytes.
-static void partition_segments(const std::vector<SegBounds>& segs, int nt,
+// Byte-balanced partition of n items (restart segments, a batch's rows) into
+// `nt` contiguous ranges: bounds[t]..bounds[t+1]; bytes(i) is item i's size.
+// Sizes vary with content, so an equal-COUNT split can leave one thread with
+// most of the bytes.
+template <typename Bytes>
+static void partition_by_bytes(int n, int nt, Bytes&& bytes,
                                std::vector<int>& bounds) {
-    int n = (int)segs.size();
     int64_t total = 0;
-    for (const auto& sb : segs) total += sb.end - sb.start;
+    for (int i = 0; i < n; ++i) total += bytes(i);
     bounds.assign(nt + 1, n);
     bounds[0] = 0;
     int64_t acc = 0;
     int t = 1;
-    for (int s = 0; s < n && t < nt; ++s) {
-        acc += segs[s].end - segs[s].start;
+    for (int i = 0; i < n && t < nt; ++i) {
+        acc += bytes(i);
         while (t < nt && acc * nt >= total * t)
-            bounds[t++] = s + 1;
+            bounds[t++] = i + 1;
     }
+}
+
+static void partition_segments(const std::vector<SegBounds>& segs, int nt,
+                               std::vector<int>& bounds) {
+    partition_by_bytes(
+        (int)segs.size(), nt,
+        [&](int s) { return segs[s].end - segs[s].start; }, bounds);
+}
+
+// Workers kept across calls for the row-parallel finalize. On the H100
+// machine's host (8 cores) a std::thread spawn+join took 100-220 us a
+// thread (1.76 ms for 8), a hand-off to 2-8 waiting workers 30-72 us, and
+// one core stuffs a MiB in about 0.2 ms: spawning would cost as much as the
+// work it splits. Made on first use, grown to the most workers a call has
+// asked for, never destroyed (its threads end with the process). One call
+// uses it at a time: a caller that finds it busy gets no workers.
+class WorkerPool {
+  public:
+    // The pool of this process: a forked child gets a new one, since only
+    // the thread that forked lives on in it. No lock guards the pointer, so
+    // a fork that lands while another thread is here leaves the child
+    // nothing to wait on; two threads that race to make the first pool keep
+    // one and delete the other, which has no thread yet.
+    static WorkerPool& get() {
+        static std::atomic<WorkerPool*> pool{nullptr};
+        WorkerPool* p = pool.load(std::memory_order_acquire);
+        if (p != nullptr && p->pid_ == getpid()) return *p;
+        WorkerPool* fresh = new WorkerPool;
+        if (pool.compare_exchange_strong(p, fresh, std::memory_order_acq_rel))
+            return *fresh;
+        delete fresh;
+        return *p;
+    }
+
+    // Runs job(t) for t in [0, nt): t = 0 on the calling thread, the others
+    // on workers; returns once all have finished. Returns false, having run
+    // nothing, when another call holds the pool. Throws std::system_error,
+    // having run nothing, when a worker cannot be made.
+    template <typename Job>
+    bool run(int nt, Job& job) {
+        std::unique_lock<std::mutex> busy(busy_, std::try_to_lock);
+        if (!busy.owns_lock()) return false;
+        Task task = [](void* f, int t) { (*static_cast<Job*>(f))(t); };
+        {
+            std::lock_guard<std::mutex> lock(m_);
+            while ((int)threads_.size() < nt - 1) {
+                int id = (int)threads_.size() + 1;
+                threads_.emplace_back([this, id] { work(id); });
+            }
+            task_ = task;
+            arg_ = &job;
+            active_ = nt;
+            pending_ = nt - 1;
+            ++gen_;
+        }
+        wake_.notify_all();
+        job(0);
+        std::unique_lock<std::mutex> lock(m_);
+        done_.wait(lock, [this] { return pending_ == 0; });
+        return true;
+    }
+
+  private:
+    using Task = void (*)(void*, int);
+
+    void work(int id) {
+        uint64_t seen = 0;
+        std::unique_lock<std::mutex> lock(m_);
+        for (;;) {
+            wake_.wait(lock, [&] { return gen_ != seen; });
+            seen = gen_;
+            if (id >= active_) continue;
+            Task task = task_;
+            void* arg = arg_;
+            lock.unlock();
+            task(arg, id);
+            lock.lock();
+            if (--pending_ == 0) done_.notify_one();
+        }
+    }
+
+    pid_t pid_ = getpid();
+    std::mutex busy_, m_;
+    std::condition_variable wake_, done_;
+    std::vector<std::thread> threads_;
+    Task task_ = nullptr;
+    void* arg_ = nullptr;
+    uint64_t gen_ = 0;
+    int active_ = 0, pending_ = 0;
+};
+
+// About one worker a MiB of a batch's bytes (a 64-row 1080p batch: 16 MB),
+// so each worker's share takes about 0.2 ms against its hand-off's ~7-15
+// us; a batch under 1 MiB, or a single row, stays on the calling thread.
+constexpr int64_t kRowShareBytes = 1 << 20;
+
+// Runs rows(r0, r1) over all n_rows rows, split into byte-balanced
+// contiguous ranges (row_bytes) on n_threads workers of the pool (0 = auto:
+// one a kRowShareBytes, capped by the rows and the hardware; 1 = the
+// calling thread alone). Returns the worker count used.
+template <typename Rows>
+static int run_rows(int n_rows, const std::vector<int64_t>& row_bytes,
+                    int n_threads, Rows&& rows) {
+    int nt = n_threads;
+    if (nt <= 0) {
+        int64_t total = 0;
+        for (int64_t b : row_bytes) total += b;
+        // read once: each call of hardware_concurrency reads a file
+        static const unsigned hc = std::thread::hardware_concurrency();
+        nt = hc ? (int)hc : 1;
+        int64_t by_bytes = total / kRowShareBytes + 1;
+        if (nt > by_bytes) nt = (int)by_bytes;
+    }
+    if (nt > n_rows) nt = n_rows;
+    if (nt > 1) {
+        std::vector<int> bounds;
+        partition_by_bytes(n_rows, nt,
+                           [&](int r) { return row_bytes[r]; }, bounds);
+        auto job = [&](int t) { rows(bounds[t], bounds[t + 1]); };
+        try {
+            if (WorkerPool::get().run(nt, job)) return nt;
+        } catch (const std::exception&) {
+            // no thread to be had (a process or thread limit): the rows
+            // run on the calling thread below, and nothing leaves the C API
+        }
+    }
+    rows(0, n_rows);
+    return 1;
 }
 
 // Shared prologue of the dense and sparse entry points: table build +
@@ -444,6 +578,95 @@ int64_t finalize_wcompact(const uint8_t* u, const int32_t* seg_nbits,
         wbase += (((nbits + 31) >> 5) + walign - 1) & ~(int64_t)(walign - 1);
     }
     return o;
+}
+
+// One row of finalize_wcompact_rows' table (int64 fields, as numpy writes
+// them: an [n_rows, 9] int64 array).
+struct FinalizeRow {
+    int64_t u_addr;      // address of the row's word-compact stream
+    int64_t u_len;       // its bytes there
+    int64_t first_rst;   // RSTn numbering starts here
+    int64_t n_rst;       // RSTn after the first n_rst kept segments
+    int64_t n_seg_keep;  // its first n_seg_keep bit counts are kept
+    int64_t head_off;    // its head: head_len bytes of `heads` from here
+    int64_t head_len;
+    int64_t out_off;     // out: its file starts at out + out_off
+    int64_t out_len;     // in: -1 skips the row; out: the file's length
+};
+static_assert(sizeof(FinalizeRow) == 9 * sizeof(int64_t), "row table");
+
+// The finalize of a batch's rows in one call: each row's whole file (its
+// head, the finalize_wcompact of its stream, then the tail) at out +
+// out_off, its length into out_len; a row with out_len -1 is left
+// unwritten. Row r's bit counts are seg_nbits[r * n_seg, r * n_seg +
+// n_seg_keep). Each row takes its bound (head_len + 2 * scan bytes +
+// 2 * n_seg_keep + 2 + tail_len) of `out`, in row order. The rows run on
+// run_rows' workers (n_threads as there), weighed by their scan bytes.
+// Returns the worker count used. Having written nothing, it returns -1
+// when a row's segments, stream or head lie outside what it was given, and
+// minus the bytes the bounds need (at least 2) when out_cap is short.
+int64_t finalize_wcompact_rows(int n_rows, FinalizeRow* rows,
+                               const int32_t* seg_nbits, int n_seg,
+                               const uint8_t* heads, int64_t heads_len,
+                               const uint8_t* tail, int64_t tail_len,
+                               int walign, uint8_t* out, int64_t out_cap,
+                               int n_threads) {
+    std::vector<int64_t> row_bytes(n_rows, 0);
+    int64_t off = 0;
+    for (int r = 0; r < n_rows; ++r) {
+        FinalizeRow& row = rows[r];
+        row.out_off = off;
+        if (row.out_len < 0) continue;
+        if (row.n_seg_keep < 0 || row.n_seg_keep > n_seg ||
+            row.head_off < 0 || row.head_len < 0 ||
+            row.head_off + row.head_len > heads_len)
+            return -1;
+        const int32_t* nb = seg_nbits + (int64_t)r * n_seg;
+        int64_t words = 0;
+        for (int64_t s = 0; s < row.n_seg_keep; ++s) {
+            if (nb[s] < 0) return -1;
+            row_bytes[r] += ((int64_t)nb[s] + 7) >> 3;
+            words += ((((int64_t)nb[s] + 31) >> 5) + walign - 1) &
+                     ~(int64_t)(walign - 1);
+        }
+        if (4 * words > row.u_len) return -1;
+        off += row.head_len + 2 * row_bytes[r] + 2 * row.n_seg_keep + 2 +
+               tail_len;
+    }
+    if (off > out_cap) return -off;
+    return run_rows(n_rows, row_bytes, n_threads, [&](int r0, int r1) {
+        for (int r = r0; r < r1; ++r) {
+            FinalizeRow& row = rows[r];
+            if (row.out_len < 0) continue;
+            uint8_t* o = out + row.out_off;
+            std::memcpy(o, heads + row.head_off, row.head_len);
+            int64_t n = row.head_len + finalize_wcompact(
+                reinterpret_cast<const uint8_t*>(row.u_addr),
+                seg_nbits + (int64_t)r * n_seg, (int)row.n_seg_keep,
+                (int)row.first_rst, (int)row.n_rst, walign,
+                o + row.head_len);
+            std::memcpy(o + n, tail, tail_len);
+            row.out_len = n + tail_len;
+        }
+    });
+}
+
+// Copies each row's out_len bytes from out + out_off to the address dst[r]
+// (a row with out_len -1 copies nothing), on run_rows' workers (n_threads
+// as there): finalize_wcompact_rows' files into the memory their owner
+// returns, whose first touch costs a page fault a page, so those spread
+// over the workers too. Returns the worker count used.
+int copy_rows(int n_rows, const FinalizeRow* rows, const uint8_t* out,
+              const uint64_t* dst, int n_threads) {
+    std::vector<int64_t> row_bytes(n_rows);
+    for (int r = 0; r < n_rows; ++r)
+        row_bytes[r] = rows[r].out_len > 0 ? rows[r].out_len : 0;
+    return run_rows(n_rows, row_bytes, n_threads, [&](int r0, int r1) {
+        for (int r = r0; r < r1; ++r)
+            if (row_bytes[r] > 0)
+                std::memcpy(reinterpret_cast<uint8_t*>(dst[r]),
+                            out + rows[r].out_off, row_bytes[r]);
+    });
 }
 
 // T.81 Annex K.2 optimal Huffman table construction (SURVEY.md component

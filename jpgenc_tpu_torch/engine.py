@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import threading
+from collections.abc import Sequence
 from typing import NamedTuple
 
 import numpy as np
@@ -286,6 +287,23 @@ def split_fetch(arr: np.ndarray, k: int, n_seg: int):
             arr[..., k + n_seg] != 0)
 
 
+class Fetched(Sequence):
+    """A batch's rows as EncodePlan.fetch brought them to the host: the
+    word-compact streams up [B, k] (each row's words contiguous; a view of
+    the fetch's own buffer), the per-segment bit counts nbits [B, n_seg],
+    and per row why it does not fit the tier (None where it does). Row i is
+    (up[i], nbits[i], causes[i])."""
+
+    def __init__(self, up: np.ndarray, nbits: np.ndarray, causes: list):
+        self.up, self.nbits, self.causes = up, nbits, causes
+
+    def __len__(self) -> int:
+        return len(self.causes)
+
+    def __getitem__(self, i):
+        return self.up[i], self.nbits[i], self.causes[i]
+
+
 def finalize_host_w(up: np.ndarray, nbits: np.ndarray, first_rst: int,
                     n_rst: int, walign: int, head: bytes = b"",
                     tail: bytes = b"") -> bytes:
@@ -456,11 +474,12 @@ class EncodePlan(nn.Module):
         """One host copy of (stream prefix, nbits, ovf) for every image
         (started: start_fetch's result, else it starts here), refetching
         the prefix only when the adaptive guess fell short; both copies go
-        through to_host_async. Returns [(u_words, nbits, cause)] per image;
-        cause is None where the image fits this tier, else why it does not:
-        "block" where the merge tail flagged a block past w_blk, else
-        "stream" where its aligned words pass cap_u. The waits are the spans
-        `jpgenc.fetch_wait` and `jpgenc.refetch_wait`."""
+        through to_host_async. Returns the rows as Fetched: (u_words,
+        nbits, cause) per image; cause is None where the image fits this
+        tier, else why it does not: "block" where the merge tail flagged a
+        block past w_blk, else "stream" where its aligned words pass cap_u.
+        The waits are the spans `jpgenc.fetch_wait` and
+        `jpgenc.refetch_wait`."""
         wstream, nbits, ovf = outs
         handle, k = started or self.start_fetch(outs)
         with span("jpgenc.fetch_wait"):
@@ -476,10 +495,11 @@ class EncodePlan(nn.Module):
                 up = to_host_async(wstream[:, :t]).wait()
         with self._guess_lock:
             self.prefix_guess = max(t, 1024)
-        return [(up[i], nb[i], "block" if ov[i] else
-                 "stream" if past_cap[i] else None) for i in range(len(nb))]
+        return Fetched(up, nb, ["block" if o else "stream" if p else None
+                                for o, p in zip(ov.tolist(),
+                                                past_cap.tolist())])
 
-    def finalize(self, fetched, rst=None, heads=None,
+    def finalize(self, fetched: Fetched, rst=None, heads=None,
                  tail: bytes = b"") -> list[bytes | None]:
         """The host finalize of fetch's rows: the entropy-coded scan
         (stuffed, no markers) per image; None for an image that overflowed.
@@ -491,10 +511,17 @@ class EncodePlan(nn.Module):
         (a ragged tail drops its padding-row segments; the stream is
         segment-ordered, so a prefix is exact), and write RSTn after the
         first n_rst of them, numbered from first_rst. The default is a
-        whole image: (0, n_segments - 1, n_segments). It is the span
-        `jpgenc.finalize_host`."""
-        out = []
+        whole image: (0, n_segments - 1, n_segments). One native call
+        (native.finalize_rows) writes every row's file on C++ workers;
+        without the library, finalize_host_w's numpy fallback runs row by
+        row. It is the span `jpgenc.finalize_host`, on the calling thread."""
         with span("jpgenc.finalize_host"):
+            out = native.finalize_rows(fetched.up, fetched.nbits,
+                                       fetched.causes, self.walign, rst,
+                                       heads, tail)
+            if out is not None:
+                return out
+            out = []
             for i, (up, nb, cause) in enumerate(fetched):
                 first, n_rst, keep = (0, len(nb) - 1, len(nb)) \
                     if rst is None else rst[i]
@@ -634,7 +661,7 @@ class EncodeJob:
         """Fetch and finalize the rows coded at tiers[0]; causes keeps, per
         row, why it overflowed them (EncodePlan.fetch), None where it fit."""
         fetched = self.plan.fetch(self.outs, self.tiers[0][0], self.started)
-        self.causes = [cause for _, _, cause in fetched]
+        self.causes = fetched.causes
         return self._finalize(fetched, slice(None))
 
     def recode(self, j: int, cap_u: int, w_blk: int) -> bytes | None:

@@ -119,6 +119,15 @@ def _load_inner():
     ]
     lib.optimize_tables.restype = ctypes.c_int
     lib.optimize_tables.argtypes = [i64p, i32p, i32p]
+    u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    rows = np.ctypeslib.ndpointer(np.int64, ndim=2, flags="C_CONTIGUOUS")
+    lib.finalize_wcompact_rows.restype = ctypes.c_int64
+    lib.finalize_wcompact_rows.argtypes = [
+        ctypes.c_int, rows, i32p, ctypes.c_int, u8p, ctypes.c_int64, u8p,
+        ctypes.c_int64, ctypes.c_int, u8p, ctypes.c_int64, ctypes.c_int,
+    ]
+    lib.copy_rows.restype = ctypes.c_int
+    lib.copy_rows.argtypes = [ctypes.c_int, rows, u8p, u64p, ctypes.c_int]
     LIB = lib
     return lib
 
@@ -287,6 +296,109 @@ def finalize_wcompact(u: np.ndarray, seg_nbits: np.ndarray,
                                     walign, out[h:])
     out[end:end + len(tail)] = np.frombuffer(tail, np.uint8)
     return out[:end + len(tail)].tobytes()
+
+
+# The C API's PyBytes_FromStringAndSize(NULL, n): a bytes object of n bytes
+# left unwritten. Its bytes lie _BYTES_DATA bytes past its address (id), as
+# PyBytes_AsString reports it.
+_new_bytes = ctypes.pythonapi.PyBytes_FromStringAndSize
+_new_bytes.restype = ctypes.py_object
+_new_bytes.argtypes = [ctypes.c_void_p, ctypes.c_ssize_t]
+_bytes_at = ctypes.pythonapi.PyBytes_AsString
+_bytes_at.restype = ctypes.c_void_p
+_bytes_at.argtypes = [ctypes.py_object]
+_BYTES_DATA = _bytes_at(b"finalize") - id(b"finalize")
+
+#: finalize_rows calls and the workers they used, summed (how often the
+#: row-parallel finalize engages), added to under _counter_lock
+finalize_calls = 0
+finalize_workers = 0
+_counter_lock = threading.Lock()
+
+
+def finalize_rows(up: np.ndarray, nbits: np.ndarray, causes, walign: int,
+                  rst=None, heads=None, tail: bytes = b"",
+                  n_threads: int = 0) -> list[bytes | None] | None:
+    """finalize_wcompact of a batch's rows in one native call, the rows split
+    over C++ workers with the GIL released. up: [n, k] the rows' word-compact
+    streams (read in place where each row's words are contiguous, as in
+    engine.EncodePlan.fetch's view of its buffer); nbits: [n, n_seg] their
+    segments' bit counts; causes: per row None, or why it overflowed (that
+    row is None in the result). rst: per row (first_rst, n_rst,
+    n_seg_keep), default (0, n_seg - 1, n_seg); heads: per row the bytes
+    before its scan, tail the bytes after every scan. n_threads: 0 (what
+    every caller in the package passes) sizes the workers from the batch:
+    about one a MiB of scan bytes, capped by the rows and the cores, so a
+    small batch stays on the calling thread, and one row goes through
+    finalize_wcompact. A count fixes them (1 = the calling thread alone);
+    the tests use it to reach every split of their batches, which are far
+    under a MiB, whatever the host's cores.
+    Returns the files in row order, or None when the native library is
+    unavailable."""
+    global finalize_calls, finalize_workers
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(causes)
+    if n == 0:
+        return []
+    if n == 1:
+        # one row (api.encode, a retry) takes the row-at-a-time call: the
+        # same core on the calling thread, with less to build than a table
+        # (19 gray 512 x 512 retries a call on the H100 machine's host:
+        # 6.2 ms against 7.5)
+        nb = np.asarray(nbits).reshape(-1)
+        first, n_rst, keep = (0, nb.size - 1, nb.size) if rst is None \
+            else rst[0]
+        files = [None if causes[0] is not None else finalize_wcompact(
+            np.asarray(up).reshape(-1), nb[:keep], first, n_rst, walign,
+            b"" if heads is None else heads[0], tail)]
+        with _counter_lock:
+            finalize_calls += 1
+            finalize_workers += 1
+        return files
+    if up.ndim != 2 or up.strides[1] != up.itemsize or up.strides[0] < 0:
+        up = np.ascontiguousarray(up).reshape(n, -1)
+    nbits = np.ascontiguousarray(nbits, np.int32).reshape(n, -1)
+    n_seg = nbits.shape[1]
+    # the row table (scan_codec.cpp's FinalizeRow)
+    t = np.empty((n, 9), np.int64)
+    t[:, 0] = up.ctypes.data + np.arange(n) * up.strides[0]
+    t[:, 1] = up.shape[1] * up.itemsize
+    t[:, 2:5] = (0, n_seg - 1, n_seg) if rst is None else rst
+    # a head shared by many rows (the standard tables) is held once
+    heads = [b""] * n if heads is None else heads
+    offset, blob, size, head_off = {}, [], 0, []
+    for h in heads:
+        o = offset.get(id(h))
+        if o is None:
+            o = offset[id(h)] = size
+            blob.append(h)
+            size += len(h)
+        head_off.append(o)
+    t[:, 5] = head_off
+    t[:, 6] = np.fromiter(map(len, heads), np.int64, n)
+    t[:, 8] = np.fromiter((-(c is not None) for c in causes), np.int64, n)
+    args = (n, t, nbits, n_seg,
+            np.frombuffer(b"".join(blob) or b"\0", np.uint8), size,
+            np.frombuffer(tail or b"\0", np.uint8), len(tail), walign)
+    out = _out_buffer(0)
+    workers = lib.finalize_wcompact_rows(*args, out, out.size, n_threads)
+    if workers < -1:            # this thread's buffer is short: grow it
+        out = _out_buffer(-workers)
+        workers = lib.finalize_wcompact_rows(*args, out, out.size, n_threads)
+    if workers < 0:
+        raise ValueError("a row's segments, stream or head lie outside what "
+                         "it was given")
+    with _counter_lock:
+        finalize_calls += 1
+        finalize_workers += workers
+    # each file's own bytes object, left unwritten here and filled by the
+    # same workers: the first touch of fresh memory costs a fault a page
+    files = [None if k < 0 else _new_bytes(None, k) for k in t[:, 8].tolist()]
+    dst = np.fromiter(map(id, files), np.uint64, n) + np.uint64(_BYTES_DATA)
+    lib.copy_rows(n, t, out, dst, workers)      # skips the None rows
+    return files
 
 
 def decode_scan_sparse(scan_data: bytes, layout, comp_dc_tab, comp_ac_tab,

@@ -299,3 +299,52 @@ def test_device_is_explicit(monkeypatch):
         api.encode(RGB, subsampling="411", device="cpu")
     with pytest.raises(ValueError, match="expected"):
         mesh.encode_batch(RGB[..., :2][None], device="cpu")
+
+
+_MODES = {"gray": {}, "420_optimize": {"optimize": True},
+          "islow": {"dct_method": "islow"},
+          "restart": {"restart_interval": 3}}
+
+
+def _mode_frames(mode: str) -> np.ndarray:
+    """Two smooth 64 x 96 frames and a noise frame, which overflows tier 0
+    and is re-coded alone; gray takes their first channel."""
+    x = [synth_frame(64, 96, seed=s) for s in (31, 32)]
+    x.append(np.random.default_rng(33).integers(0, 256, (64, 96, 3),
+                                                dtype=np.uint8))
+    x = np.stack(x)
+    return np.ascontiguousarray(x[..., 0]) if mode == "gray" else x
+
+
+@pytest.mark.parametrize("codec", ["native", "numpy"])
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("entry", ["encode_batch", "encode_striped",
+                                   "api.encode"])
+def test_files_equal_the_row_at_a_time_finalize(entry, mode, codec,
+                                                monkeypatch):
+    """encode_batch (its noise row retried alone), encode_striped (three
+    ragged stripes a frame, each a row of stripe plans) and api.encode give
+    the same files through the batch finalize (native.finalize_rows) as
+    through the row-at-a-time finalize: finalize_host_w's C++ call a row,
+    or, with the C++ library gone, its numpy one."""
+    x, kw = _mode_frames(mode), dict(_MODES[mode], quality=75, device="cpu")
+
+    def encode():
+        if entry == "encode_batch":
+            return mesh.encode_batch(x, **kw)
+        if entry == "encode_striped":
+            return [mesh.encode_striped(f, 3, **kw) for f in x]
+        return [api.encode(f, **kw) for f in x]
+
+    calls = engine.native.finalize_calls
+    batch = encode()
+    calls, before = engine.native.finalize_calls, calls
+    assert calls > before
+    with monkeypatch.context() as m:
+        if codec == "numpy":
+            m.setattr(engine.native, "_load", lambda: None)
+        else:
+            m.setattr(engine.native, "finalize_rows", lambda *a, **k: None)
+        rows = encode()
+    assert engine.native.finalize_calls == calls
+    assert rows == batch

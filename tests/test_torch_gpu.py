@@ -1295,3 +1295,36 @@ def test_gray512_batch_on_cuda_holds_the_benchmark_reference(cuda,
                                    for i in picks], cfg)
     checks = judge.held(readings, limits)
     assert set(checks) == set(limits) and judge.passes(checks), readings
+
+
+@pytest.mark.parametrize("name,n", [("rgb1080p_420_q75", 64),
+                                    ("gray512_q75", 512)])
+def test_batch_finalize_on_cuda_equals_per_row(cuda, monkeypatch, name, n):
+    """The benchmark cells' batches at their size (64 photographic 1080p
+    frames; 512 gray 512 x 512 frames, whose few retried rows finalize
+    alone): the batch finalize's files equal the row-at-a-time path's
+    (native.finalize_wcompact a row), and the batch's finalize takes more
+    than one C++ worker on the card's host."""
+    from portbench import frames as bench_frames
+    root = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+    cfg = json.loads((root / f"{name}.json").read_text())
+    amps = bench_frames.levels(cfg, 1, n, 2**31 + 60)[0]
+    x = bench_frames.frames(n, cfg["height"], cfg["width"], cfg["channels"],
+                            bench_frames.generator(2**31 + 60, cuda), cuda,
+                            amps)
+    kw = dict(quality=cfg["quality"], subsampling=cfg["subsampling"],
+              device="cuda")
+    used = []
+    real = native.finalize_rows
+
+    def counted(*args, **kwargs):
+        before = native.finalize_workers
+        out = real(*args, **kwargs)
+        used.append(native.finalize_workers - before)
+        return out
+
+    monkeypatch.setattr(native, "finalize_rows", counted)
+    files = mesh.encode_batch(x, **kw)
+    assert used[0] > 1 and set(used[1:]) <= {1}, used
+    monkeypatch.setattr(native, "finalize_rows", lambda *a, **k: None)
+    assert mesh.encode_batch(x, **kw) == files

@@ -10,7 +10,10 @@ the same inputs: this file is where the two packages meet.
 """
 import dataclasses
 import json
+import multiprocessing
 import os
+import sys
+import threading
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -323,6 +326,217 @@ def test_finalize_frames_the_scan_with_head_and_tail(case, monkeypatch):
     monkeypatch.setattr(teng.native, "available", lambda: False)
     assert teng.finalize_host_w(up, nbits, first, n_rst, walign, head,
                                 tail) == head + ref + tail
+
+
+_FINALIZE_CASES = [
+    pytest.param((1, 1, 64, None, None, 2, 0), id="1-64"),
+    pytest.param((5, 5, 8, None, None, 2, 4), id="5-8"),
+    pytest.param((3, 3, 16, None, None, 2, 2), id="3-16"),
+    *_STUFFING]
+_TAIL = b"\xff\xd9"
+_ROWS_CASES = {}
+
+
+def _rows_case(case, n_rows: int):
+    """A batch of n_rows rows of one _STUFFING-style case, as
+    EncodePlan.fetch returns them, and each row's file from the reference.
+
+    One row is the case itself with its RSTn plan, no head and no tail.
+    Otherwise every row has the case's segment count and walign but its own
+    seed and lengths (each length scaled by row % 5 / 2: a fifth of the rows
+    0 bytes), and over the rows: every fourth skipped (cause "stream" or
+    "block"), a head of its own on every third and a shared one on the rest,
+    the shared tail, and (first_rst, n_rst, n_seg_keep) stripe plans, some
+    keeping fewer segments than the row has."""
+    key = (repr(case), n_rows)
+    if key not in _ROWS_CASES:
+        _ROWS_CASES[key] = _make_rows_case(case, n_rows)
+    return _ROWS_CASES[key]
+
+
+def _make_rows_case(case, n_rows: int):
+    seed, n_seg, walign, ff, nbytes, first, n_rst = case
+    if n_rows == 1:
+        rows = [_stream_case(seed, n_seg, walign, ff, nbytes)]
+        causes = [None]
+        rst = [(first, n_rst, n_seg)]
+        heads, tail = [b""], b""
+    else:
+        rows, causes, rst, heads = [], [], [], []
+        shared = bytes(range(40, 240))
+        for r in range(n_rows):
+            lens = None if nbytes is None else \
+                [b * (r % 5) // 2 for b in nbytes]
+            rows.append(_stream_case(seed * 1000 + r, n_seg, walign,
+                                     ff if lens is not None else None, lens))
+            causes.append(("stream", "block")[r % 2] if r % 4 == 3 else None)
+            keep = n_seg - (r % 3 == 1) * (n_seg // 2)
+            rst.append((first + r, min(n_rst, keep - 1) if r % 2 else n_rst,
+                        keep))
+            heads.append(bytes([r % 256]) * (r % 7) if r % 3 == 0
+                         else shared)
+        tail = _TAIL
+    want = [None if cause else heads[i] + jeng.finalize_host_w(
+        up, nbits[:rst[i][2]], rst[i][0], rst[i][1], walign) + tail
+        for i, ((up, nbits), cause) in enumerate(zip(rows, causes))]
+    # the rows as one fetch holds them: each stream in a row of one array,
+    # the rest of the row left as it was
+    width = max(len(up) for up, _ in rows)
+    up2 = np.random.default_rng(seed).integers(
+        -2 ** 31, 2 ** 31, (n_rows, width + 3), dtype=np.int64
+    ).astype(np.int32)[:, :width]
+    for i, (up, _) in enumerate(rows):
+        up2[i, :len(up)] = up
+    nbits2 = np.stack([nbits for _, nbits in rows])
+    return (up2, nbits2, causes, walign, rst, heads, tail), rows, want
+
+
+@pytest.mark.parametrize("n_threads", [0, 1, 2, 3, 7])
+@pytest.mark.parametrize("n_rows", [1, 3, 64])
+@pytest.mark.parametrize("case", _FINALIZE_CASES)
+def test_finalize_rows_equals_per_row_finalize(case, n_rows, n_threads):
+    """The batch finalize (one native call, rows over workers) writes each
+    row's file byte for byte as the row-at-a-time finalize_host_w and the
+    reference do; a skipped row is None; one row takes one worker."""
+    from jpgenc_tpu_torch import native as tn
+    args, rows, want = _rows_case(case, n_rows)
+    _, _, causes, walign, rst, heads, tail = args
+    per_row = [None if cause else teng.finalize_host_w(
+        up, nb[:rst[i][2]], rst[i][0], rst[i][1], walign, heads[i], tail)
+        for i, ((up, nb), cause) in enumerate(zip(rows, causes))]
+    assert per_row == want
+    calls, workers = tn.finalize_calls, tn.finalize_workers
+    assert tn.finalize_rows(*args, n_threads) == want
+    assert tn.finalize_calls == calls + 1
+    used = tn.finalize_workers - workers
+    if n_threads:
+        assert used == min(n_threads, n_rows)
+    else:
+        assert used == 1 if n_rows == 1 else 1 <= used <= os.cpu_count()
+
+
+@pytest.mark.parametrize("n_rows,row_bytes", [
+    (1, 3 << 20), (8, 100_000), (12, 400_000), (40, 300_000)])
+def test_finalize_rows_sizes_its_workers_from_the_bytes(n_rows, row_bytes):
+    """Given no count, the batch finalize takes about one worker a MiB of
+    scan bytes, capped by the rows and the cores: one row however long, and
+    a batch under a MiB, stay on the calling thread; larger batches split
+    over several workers and give the reference's files."""
+    from jpgenc_tpu_torch import native as tn
+    rows = [_stream_case(60 + r, 2, 8, 0, [row_bytes // 2] * 2)
+            for r in range(n_rows)]
+    up = np.zeros((n_rows, max(len(u) for u, _ in rows)), np.int32)
+    for i, (u, _) in enumerate(rows):
+        up[i, :len(u)] = u
+    nbits = np.stack([nb for _, nb in rows])
+    want = [jeng.finalize_host_w(u, nb, 0, 1, 8) for u, nb in rows]
+    workers = tn.finalize_workers
+    assert tn.finalize_rows(up, nbits, [None] * n_rows, 8) == want
+    assert tn.finalize_workers - workers == min(
+        n_rows, os.cpu_count(), n_rows * row_bytes // (1 << 20) + 1)
+
+
+@pytest.mark.parametrize("case", _FINALIZE_CASES)
+def test_finalize_rows_without_sse2(case, monkeypatch):
+    """The codec built without SSE2 stuffs every byte alone: the batch
+    finalize's files are the same."""
+    from jpgenc_tpu_torch import native as tn
+    args, _, want = _rows_case(case, 64)
+    monkeypatch.setattr(tn, "GXX_FLAGS", [*tn.GXX_FLAGS, "-U__SSE2__"])
+    monkeypatch.setattr(tn, "LIB", None)
+    assert tn.available()
+    assert tn.finalize_rows(*args, 3) == want
+
+
+def test_finalize_rows_defaults_and_refusals():
+    """No rst: each row a whole image (RSTn after all but the last
+    segment); no heads: bare scans; no rows: no files; rows that are not
+    contiguous are read all the same. A row whose bit counts need more
+    words than its stream holds, or that keeps more segments than it has,
+    is refused before any is written."""
+    from jpgenc_tpu_torch import native as tn
+    rows = [_stream_case(40 + r, 4, 8) for r in range(5)]
+    need = max(int(tpack.seg_nwords_aligned(nb.astype(np.int64), 8).sum())
+               for _, nb in rows)
+    up = np.zeros((5, max(len(u) for u, _ in rows)), np.int32)
+    for i, (u, _) in enumerate(rows):
+        up[i, :len(u)] = u
+    nbits = np.stack([nb for _, nb in rows])
+    want = [jeng.finalize_host_w(u, nb, 0, 3, 8) for u, nb in rows]
+    assert tn.finalize_rows(up, nbits, [None] * 5, 8) == want
+    assert tn.finalize_rows(np.asfortranarray(up), nbits, [None] * 5,
+                            8) == want
+    assert tn.finalize_rows(up[:0], nbits[:0], [], 8) == []
+    with pytest.raises(ValueError):
+        tn.finalize_rows(up[:, :need - 1], nbits, [None] * 5, 8)
+    with pytest.raises(ValueError):
+        tn.finalize_rows(up, nbits, [None] * 5, 8, [(0, 3, 5)] * 5)
+
+
+def test_finalize_rows_from_many_threads():
+    """Sixteen threads finalize at once (more than the cores), each batch
+    over up to three workers: the pool serves one call at a time and the
+    others run on their own thread, every file is right, and every call
+    and worker is counted."""
+    from jpgenc_tpu_torch import native as tn
+    args, _, want = _rows_case(_FINALIZE_CASES[-1].values[0], 64)
+    n_threads, n_iter = 16, 10
+    start = threading.Barrier(n_threads)
+    errors = []
+
+    def worker():
+        try:
+            start.wait(timeout=30)
+            for _ in range(n_iter):
+                assert tn.finalize_rows(*args, 3) == want
+        except Exception as exc:      # noqa: BLE001  (reported below)
+            errors.append(exc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        calls, workers = tn.finalize_calls, tn.finalize_workers
+        threads = [threading.Thread(target=worker) for _ in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads) and not errors
+    finally:
+        sys.setswitchinterval(old)
+    assert tn.finalize_calls == calls + n_threads * n_iter
+    assert n_threads * n_iter <= tn.finalize_workers - workers \
+        <= 3 * n_threads * n_iter
+
+
+def _finalize_in_child(args, conn):
+    from jpgenc_tpu_torch import native as tn
+    conn.send(tn.finalize_rows(*args, 3))
+
+
+@pytest.mark.filterwarnings(
+    "ignore:This process .* is multi-threaded:DeprecationWarning")
+@pytest.mark.filterwarnings("ignore:os.fork.. was called:RuntimeWarning")
+def test_finalize_rows_after_fork():
+    """A process forked after the pool's workers started has none of them:
+    its first threaded finalize makes its own and gives the same files."""
+    from jpgenc_tpu_torch import native as tn
+    args, _, want = _rows_case(_FINALIZE_CASES[-1].values[0], 64)
+    assert tn.finalize_rows(*args, 3) == want
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=_finalize_in_child, args=(args, send),
+                        daemon=True)
+    child.start()
+    try:
+        got = recv.recv() if recv.poll(60) else "no answer in 60 s"
+        child.join(timeout=60)
+        assert not child.is_alive() and child.exitcode == 0
+    finally:
+        if child.is_alive():
+            child.kill()
+            child.join(timeout=10)
+    assert got == want
 
 
 def test_fetch_split_equals_reference():

@@ -2,8 +2,9 @@
 ranges entered only while a profiler runs, one `jpgenc.retry` for each image
 that overflowed the tight tier, one `jpgenc.fetch_wait` a fetch and one
 `jpgenc.refetch_wait` a refetch, and with optimize one `jpgenc.pass1`,
-`jpgenc.hist_wait` and `jpgenc.tables` an entry a call; they change no
-byte. `engine.fetched_bytes` loses nothing under threads.
+`jpgenc.hist_wait` and `jpgenc.tables` an entry a call, one
+`jpgenc.finalize_host` a finalize, every range on the calling thread; they
+change no byte. `engine.fetched_bytes` loses nothing under threads.
 
 The test marked `gpu` needs CUDA (`stage_batch` pins only for a card); it
 imports no JAX, so it runs on the card's machine without the conftest:
@@ -19,7 +20,7 @@ import torch
 import torch._C._profiler
 from torch.profiler import ProfilerActivity, profile
 
-from jpgenc_tpu_torch import api, engine
+from jpgenc_tpu_torch import api, engine, native
 from jpgenc_tpu_torch.config import EncodeConfig
 from jpgenc_tpu_torch.parallel import mesh
 from jpgenc_tpu_torch.utils import profiling
@@ -250,3 +251,40 @@ def test_stage_pin_span_on_the_card(cuda):
             if e.name().startswith("jpgenc.")
             and "cuda" in str(e.device_type()).lower()]
     assert card == []
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]])
+def test_one_finalize_span_a_finish_on_the_calling_thread(devices,
+                                                         monkeypatch):
+    """Each finish and each retry's re-code finalizes its rows in one
+    native call: exactly one `jpgenc.finalize_host` range each, even with
+    the rows spread over three C++ workers, and every `jpgenc.*` range on
+    the thread that called encode_batch (the workers open none). The files
+    are the untraced ones."""
+    imgs = _frames(260)
+    want = mesh.encode_batch(imgs, device="cpu", devices=devices)
+    overflows = _tight_overflows(imgs)
+    real = native.finalize_rows
+    monkeypatch.setattr(native, "finalize_rows",
+                        lambda *a, **kw: real(*a, **kw, n_threads=3))
+    finalized = []
+    for name in ("finish", "recode"):
+        def counted(self, *args, _real=getattr(engine.EncodeJob, name),
+                    _name=name):
+            finalized.append(_name)
+            return _real(self, *args)
+        monkeypatch.setattr(engine.EncodeJob, name, counted)
+    workers = native.finalize_workers
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("caller"):
+            got = mesh.encode_batch(imgs, device="cpu", devices=devices)
+    assert got == want
+    assert finalized.count("finish") == len(devices or [None])
+    assert finalized.count("recode") == overflows == 2
+    assert _names(prof).count("jpgenc.finalize_host") == len(finalized)
+    assert native.finalize_workers - workers > len(finalized)
+    events = prof.profiler.kineto_results.events()
+    caller = {e.start_thread_id() for e in events if e.name() == "caller"}
+    threads = {e.start_thread_id() for e in events
+               if e.name().startswith("jpgenc.")}
+    assert len(caller) == 1 and threads == caller
